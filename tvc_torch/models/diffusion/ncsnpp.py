@@ -1,0 +1,268 @@
+"""NCSN++ conditional diffusion UNet (counterpart of ``tvc/models/diffusion/ncsnpp.py``).
+
+The module list is generated by the same recipe as the reference
+``ncsnpp_more.py``, so module ``i`` is ``all_modules.{i}`` and a reference
+state dict (``checkpoint_*.pt``) loads with no converter. The public forward
+takes and returns NHWC tensors, as the JAX package does; inside, activations
+are NCHW, the layout cuDNN's convolutions want.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tvc_torch.core.config import Config
+from tvc_torch.core.runtime import resolve_device
+from tvc_torch.models.diffusion.layers import (
+    AttnBlockpp,
+    DDPMConv,
+    Dense,
+    GetActNorm,
+    ResnetBlockBigGAN,
+    get_timestep_embedding,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class NCSNppSpec:
+    """Static architecture description (derived from Config)."""
+
+    image_size: int = 128
+    channels: int = 3
+    num_frames: int = 5
+    num_frames_cond: int = 2
+    ngf: int = 192
+    ch_mult: Tuple[int, ...] = (1, 1, 2, 3, 4)
+    num_res_blocks: int = 2
+    attn_resolutions: Tuple[int, ...] = (8, 16, 32)
+    n_head_channels: int = 192
+    dropout: float = 0.0
+    time_conditional: bool = True
+    cond_emb: bool = False
+    skip_rescale: bool = True
+    num_classes: int = 1000
+    embedding_type: str = "positional"
+
+    @property
+    def n_frames(self) -> int:
+        return self.num_frames + self.num_frames_cond
+
+    @classmethod
+    def from_config(cls, cfg: Config) -> "NCSNppSpec":
+        return cls(
+            image_size=cfg.data.image_size,
+            channels=cfg.data.channels,
+            num_frames=cfg.data.num_frames,
+            num_frames_cond=cfg.data.num_frames_cond + cfg.data.num_frames_future,
+            ngf=cfg.model.ngf,
+            ch_mult=tuple(cfg.model.ch_mult),
+            num_res_blocks=cfg.model.num_res_blocks,
+            attn_resolutions=tuple(cfg.model.attn_resolutions),
+            n_head_channels=cfg.model.n_head_channels,
+            dropout=cfg.model.dropout,
+            time_conditional=cfg.model.time_conditional,
+            cond_emb=cfg.model.cond_emb,
+            num_classes=cfg.model.num_classes,
+            embedding_type=cfg.model.embedding_type,
+        )
+
+
+def _build_plan(spec: NCSNppSpec) -> List[dict]:
+    """The ordered module list, mirroring ncsnpp_more.py:70-249."""
+    plan: List[dict] = []
+    nf = spec.ngf
+    num_resolutions = len(spec.ch_mult)
+    all_res = [spec.image_size // (2 ** i) for i in range(num_resolutions)]
+
+    if spec.embedding_type != "positional" or spec.cond_emb:
+        raise NotImplementedError(
+            "the Fourier time embedding and the cond-mask embedding (cond_emb) are not "
+            "ported yet (ROADMAP.md, queue A, capability surface)")
+    if spec.time_conditional:
+        plan.append({"kind": "dense", "in": nf, "out": nf * 4})
+        plan.append({"kind": "dense", "in": nf * 4, "out": nf * 4})
+
+    plan.append({"kind": "conv3", "in": spec.channels * spec.n_frames, "out": nf})
+    hs_c = [nf]
+    in_ch = nf
+    for i_level in range(num_resolutions):
+        for _ in range(spec.num_res_blocks):
+            out_ch = nf * spec.ch_mult[i_level]
+            plan.append({"kind": "res", "in": in_ch, "out": out_ch})
+            in_ch = out_ch
+            if all_res[i_level] in spec.attn_resolutions:
+                plan.append({"kind": "attn", "ch": in_ch})
+            hs_c.append(in_ch)
+        if i_level != num_resolutions - 1:
+            plan.append({"kind": "res", "in": in_ch, "out": in_ch, "down": True})
+            hs_c.append(in_ch)
+
+    plan.append({"kind": "res", "in": in_ch, "out": in_ch})
+    plan.append({"kind": "attn", "ch": in_ch})
+    plan.append({"kind": "res", "in": in_ch, "out": in_ch})
+
+    for i_level in reversed(range(num_resolutions)):
+        for _ in range(spec.num_res_blocks + 1):
+            out_ch = nf * spec.ch_mult[i_level]
+            in_ch_old = hs_c.pop()
+            plan.append({"kind": "res", "in": in_ch + in_ch_old, "out": out_ch})
+            in_ch = out_ch
+        if all_res[i_level] in spec.attn_resolutions:
+            plan.append({"kind": "attn", "ch": in_ch})
+        if i_level != 0:
+            plan.append({"kind": "res", "in": in_ch, "out": in_ch, "up": True})
+
+    if hs_c:
+        raise AssertionError("unbalanced skip connections in the NCSN++ plan")
+    plan.append({"kind": "actnorm", "ch": in_ch})
+    plan.append({"kind": "conv3", "in": in_ch, "out": spec.channels * spec.num_frames,
+                 "init_scale": 0.0})
+    return plan
+
+
+class NCSNpp(nn.Module):
+    """The 2-D channel-stacked-frames NCSN++ UNet (ncsnpp_more.py:32-392)."""
+
+    def __init__(self, spec: NCSNppSpec, device=None):
+        super().__init__()
+        self.spec = spec
+        self.plan = _build_plan(spec)
+        temb_dim = 4 * spec.ngf if spec.time_conditional else None
+        mods = []
+        for p in self.plan:
+            kind = p["kind"]
+            if kind == "dense":
+                mods.append(Dense(p["in"], p["out"], device=device))
+            elif kind == "conv3":
+                mods.append(DDPMConv(p["in"], p["out"], 3, init_scale=p.get("init_scale", 1.0),
+                                     device=device))
+            elif kind == "res":
+                mods.append(ResnetBlockBigGAN(p["in"], p["out"], temb_dim, up=p.get("up", False),
+                                              down=p.get("down", False),
+                                              skip_rescale=spec.skip_rescale, device=device))
+            elif kind == "attn":
+                mods.append(AttnBlockpp(p["ch"], skip_rescale=True, init_scale=0.0,
+                                        n_head_channels=spec.n_head_channels, device=device))
+            elif kind == "actnorm":
+                mods.append(GetActNorm(p["ch"], None, device=device))
+            else:
+                raise ValueError(kind)
+        self.all_modules = nn.ModuleList(mods)
+
+    def forward(self, x: torch.Tensor, time_cond: torch.Tensor,
+                cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: (B, H, W, C*num_frames) noisy frames; cond: (B, H, W, C*num_frames_cond);
+        time_cond: (B,) integer step labels. Returns (B, H, W, C*num_frames)."""
+        spec = self.spec
+        mods = self.all_modules
+        m_idx = 0
+        num_resolutions = len(spec.ch_mult)
+
+        if cond is not None:
+            x = torch.cat([x, cond], dim=-1)
+        x = x.permute(0, 3, 1, 2)
+
+        temb = None
+        if spec.time_conditional:
+            temb = mods[0](get_timestep_embedding(time_cond, spec.ngf))
+            temb = mods[1](F.silu(temb))
+            m_idx = 2
+
+        hs = [mods[m_idx](x)]
+        m_idx += 1
+        for i_level in range(num_resolutions):
+            for _ in range(spec.num_res_blocks):
+                h = mods[m_idx](hs[-1], temb)
+                m_idx += 1
+                if h.shape[-1] in spec.attn_resolutions:
+                    h = mods[m_idx](h)
+                    m_idx += 1
+                hs.append(h)
+            if i_level != num_resolutions - 1:
+                hs.append(mods[m_idx](hs[-1], temb))
+                m_idx += 1
+
+        h = hs[-1]
+        h = mods[m_idx](h, temb)
+        h = mods[m_idx + 1](h)
+        h = mods[m_idx + 2](h, temb)
+        m_idx += 3
+
+        for i_level in reversed(range(num_resolutions)):
+            for _ in range(spec.num_res_blocks + 1):
+                h = mods[m_idx](torch.cat([h, hs.pop()], dim=1), temb)
+                m_idx += 1
+            if h.shape[-1] in spec.attn_resolutions:
+                h = mods[m_idx](h)
+                m_idx += 1
+            if i_level != 0:
+                h = mods[m_idx](h, temb)
+                m_idx += 1
+
+        h = mods[m_idx](h)
+        h = mods[m_idx + 1](h)
+        m_idx += 2
+        if hs or m_idx != len(mods):
+            raise AssertionError("NCSN++ forward did not consume the module plan")
+        return h.permute(0, 2, 3, 1)
+
+
+def make_schedule(cfg: Config) -> dict:
+    """Noise-schedule buffers (ncsnpp_more.py:735-749), float64 numpy."""
+    T = cfg.model.num_classes
+    dist = cfg.model.sigma_dist
+    if dist == "linear":
+        betas = np.linspace(cfg.model.sigma_begin, cfg.model.sigma_end, T, dtype=np.float64)
+        alphas = np.cumprod(1.0 - betas[::-1])[::-1].copy()
+        alphas_prev = np.concatenate([alphas[1:], [1.0]])
+    elif dist == "cosine":
+        t = np.linspace(T, 0, T + 1, dtype=np.float64) / T
+        s = 0.008
+        f = np.cos((t + s) / (1 + s) * np.pi / 2) ** 2
+        alphas = f[:-1] / f[-1]
+        alphas_prev = np.concatenate([alphas[1:], [1.0]])
+        betas = 1.0 - alphas / alphas_prev
+    elif dist == "geometric":
+        betas = np.logspace(np.log10(cfg.model.sigma_begin), np.log10(cfg.model.sigma_end), T)
+        alphas = np.cumprod(1.0 - betas[::-1])[::-1].copy()
+        alphas_prev = np.concatenate([alphas[1:], [1.0]])
+    else:
+        raise NotImplementedError(dist)
+    return {"betas": betas, "alphas": alphas, "alphas_prev": alphas_prev}
+
+
+class UNetMoreDDPM(nn.Module):
+    """The UNet wrapper (ncsnpp_more.py:721-770); its state dict holds the
+    reference's keys, ``unet.all_modules.{i}.*``. The sampler, not the model,
+    holds the noise schedule (``make_schedule`` / ``Schedule``).
+
+    ``device`` is resolved like every entry point of the port: ``"cuda"`` by
+    default, which raises on a host without a card; ``"meta"`` builds the
+    parameter shapes only."""
+
+    def __init__(self, cfg: Config, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        if cfg.model.spade:
+            raise NotImplementedError(
+                "model.spade: the SPADE NCSN++ is not ported yet (ROADMAP.md, queue A, "
+                "capability surface)")
+        if cfg.model.arch in ("unetmore3d", "unetmorepseudo3d"):
+            raise NotImplementedError(
+                f"model.arch={cfg.model.arch!r}: the 3-D NCSN++ is not ported yet (ROADMAP.md, "
+                "queue A, capability surface)")
+        if cfg.model.noise_in_cond:
+            raise NotImplementedError(
+                "model.noise_in_cond is not ported yet (ROADMAP.md, queue A, capability surface)")
+        self.cfg = cfg
+        self.unet = NCSNpp(NCSNppSpec.from_config(cfg), device=dev)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor,
+                cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.unet(x, y, cond)

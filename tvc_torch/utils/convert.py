@@ -1,0 +1,96 @@
+"""Carry weights into the port: JAX parameter trees and reference checkpoints.
+
+A JAX (Flax) parameter tree, given as nested dicts of numpy arrays, maps onto
+the port's state dict by name:
+
+  ``m{i}``               -> ``all_modules.{i}`` (the reference's module index)
+  ``conv`` / ``gn``      -> dropped (the JAX wrapper modules around nn.Conv / nn.GroupNorm)
+  ``kernel`` (kh,kw,I,O) -> ``weight`` (O,I,kh,kw)
+  ``kernel`` (in,out)    -> ``weight`` (out,in)
+  ``scale``, ``embedding`` -> ``weight``
+  anything else (``bias``, NIN ``W``/``b``, ``W``) keeps its name and layout.
+
+The port's UNet names its parameters with the reference's ``all_modules``
+keys, so a reference ``checkpoint_*.pt`` loads with ``load_diffusion_checkpoint``
+and no conversion of layouts.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from tvc_torch.core.config import Config
+
+_DROPPED = ("conv", "gn")
+_RENAMED = {"scale": "weight", "embedding": "weight"}
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a)
+
+
+def _leaf(name: str, a) -> tuple:
+    t = _tensor(a)
+    if name == "kernel":
+        return "weight", t.permute(3, 2, 0, 1) if t.dim() == 4 else t.t()
+    return _RENAMED.get(name, name), t
+
+
+def state_dict_from_jax(tree: Dict[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Flatten a JAX parameter (sub)tree into port state-dict entries.
+    Tensors may be views of the numpy arrays; ``load_state_dict`` copies them."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, v in tree.items():
+        if isinstance(v, dict):
+            if name in _DROPPED:
+                key = prefix
+            elif name[0] == "m" and name[1:].isdigit():
+                key = f"{prefix}all_modules.{name[1:]}."
+            else:
+                key = f"{prefix}{name}."
+            out.update(state_dict_from_jax(v, key))
+        else:
+            leaf, t = _leaf(name, v)
+            out[prefix + leaf] = t
+    return out
+
+
+def unet_from_jax(cfg: Config, np_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{'params': {'unet': {'m{i}': ...}}}`` (the JAX ``UNetMoreDDPM``
+    variables) -> the port's ``UNetMoreDDPM`` state dict (``unet.all_modules.{i}.*``)."""
+    if cfg.model.spade or cfg.model.arch in ("unetmore3d", "unetmorepseudo3d"):
+        raise NotImplementedError("only the 2-D NCSN++ UNet is ported")
+    return state_dict_from_jax(np_params["params"]["unet"], "unet.")
+
+
+def lpips_from_jax(np_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX LPIPS(alex) ``params`` tree (``net/conv{i}``, ``lin{k}`` as
+    (1, 1, C, 1)) -> the port's ``LPIPS`` state dict (``lin{k}`` as (1, C, 1, 1))."""
+    params = np_params.get("params", np_params)
+    out = state_dict_from_jax({"net": params["net"]})
+    for k, v in params.items():
+        if k.startswith("lin"):
+            out[k] = _tensor(v).permute(3, 2, 0, 1)
+    return out
+
+
+def load_diffusion_checkpoint(path: str, cfg: Config, use_ema: bool = True) -> Dict[str, torch.Tensor]:
+    """A reference ``checkpoint_*.pt`` (a list: [0] the DataParallel state
+    dict, [-1] the EMA shadow) from a local path -> the port's
+    ``UNetMoreDDPM`` state dict."""
+    states = torch.load(path, map_location="cpu", weights_only=True)
+    sd = states[-1] if (use_ema and cfg.model.ema) else states[0]
+    out = {}
+    for k, v in sd.items():
+        k = k[len("module."):] if k.startswith("module.") else k
+        if k.startswith("all_modules."):
+            k = "unet." + k
+        if k.startswith("unet.all_modules."):
+            out[k] = v
+    return out
