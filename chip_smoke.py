@@ -9,9 +9,12 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    numerics flags the port sets;
 2. the build of every kernel from ``tvc_torch/csrc`` (with ``-Xptxas -v``);
 3. every kernel against its plain PyTorch version on the card, at the shapes
-   of the flagship UNet (B = 1 and 8; float32 and bfloat16), with its time,
-   the plain version's, ``scaled_dot_product_attention``'s as a yardstick and
-   the bound of the card;
+   and in the layout of the flagship UNet (strided heads of (B, T, C)
+   projections; B = 1 and 8; float32 and bfloat16), two launches bit-identical,
+   with its plan (query tile, key splits, blocks), registers and spills, its
+   time, the plain version's, ``scaled_dot_product_attention``'s as a
+   yardstick and the bound of the card. Times are device times of a CUDA graph
+   of many launches (``eager_ms``: the same launches from the host);
 4. the full-width UNet (default ``Config()``, 262.1M parameters, seeded random
    weights): one forward through the kernel against one through the plain
    attention on the card, its time, and a profile of one call;
@@ -25,12 +28,15 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 The last lines are the ``kernels`` JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result; nothing runs on the CPU.
+
+    python3 chip_smoke.py --sweep   # also time every attention plan at the B=1 levels
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -72,7 +78,9 @@ def smi_name_power() -> str:
 
 
 def time_ms(torch, fn, iters: int) -> float:
-    """Mean device time of one ``fn()`` over ``iters`` launches, after warm-up."""
+    """Mean time of one ``fn()`` over ``iters`` launches from the host, after
+    warm-up (CUDA events: the card's time, or the host's where it launches
+    slower than the card runs)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -86,13 +94,63 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, iters: int, replays: int = 5) -> float:
+    """Mean device time of one ``fn()`` in a CUDA graph of ``iters`` calls:
+    the card's time without the host's launch overhead."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    return ms
+
+
 def attention_bound_ms(b, h, t, d, itemsize, peak):
     flops = 4.0 * b * h * t * t * d          # q k^T and p v, 2 FLOP per multiply-add
     nbytes = 4.0 * b * h * t * d * itemsize  # q, k, v read once, o written once
     return max(flops / peak, nbytes / HBM_BPS) * 1e3, flops / peak >= nbytes / HBM_BPS
 
 
-def phase_kernels(torch, attn):
+def ptxas_entries(report: str) -> dict:
+    """Registers and spill bytes of each kernel entry in an ``-Xptxas -v``
+    report, keyed by (dtype, float4 columns a lane owns in p.v)."""
+    entries, key = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '\S*attention_fwdI(f|13__nv_bfloat16)Li(\d+)E",
+                      line)
+        if m:
+            key = ("float32" if m.group(1) == "f" else "bfloat16", int(m.group(2)))
+            entries[key] = {"registers": None, "spill_bytes": 0}
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entries[key]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entries[key]["registers"] = int(m.group(1))
+    return entries
+
+
+def head_view(x, b, h, t, d):
+    """(B, T, H*d) -> the strided (B, H, T, d) view the attention block passes."""
+    return x.view(b, t, h, d).transpose(1, 2)
+
+
+def phase_kernels(torch, attn, ptxas):
     """Phase 3: the attention kernel against its plain version at every flagship shape."""
     import torch.nn.functional as F
 
@@ -101,7 +159,8 @@ def phase_kernels(torch, attn):
     for dtype, peak in ((torch.float32, F32_PEAK), (torch.bfloat16, BF16_PEAK)):
         for b in (1, 8):
             for name, t, h, per_call in LEVELS:
-                q, k, v = (torch.randn((b, h, t, HEAD_DIM), generator=g, device="cuda").to(dtype)
+                q, k, v = (head_view(torch.randn((b, t, h * HEAD_DIM), generator=g,
+                                                 device="cuda").to(dtype), b, h, t, HEAD_DIM)
                            for _ in range(3))
                 out = attn.attention(q, k, v)
                 ref = attn.attention_plain(q, k, v)
@@ -113,22 +172,55 @@ def phase_kernels(torch, attn):
                     tol = 2.0 ** -6 * max(1.0, ref.float().abs().max().item())
                 if not err <= tol or not torch.isfinite(out).all():
                     fail(f"attention {name} B={b} {dtype}: max|kernel-plain| {err} > {tol}")
+                if out.transpose(1, 2).stride() != (t * h * HEAD_DIM, h * HEAD_DIM, HEAD_DIM, 1):
+                    fail(f"attention {name} B={b} {dtype}: output is not laid out as (B, T, H, d)")
                 again = attn.attention(q, k, v)
                 if not torch.equal(again, out):
                     fail(f"attention {name} B={b} {dtype}: two launches differ")
-                iters = 200 if t < 1024 else 50
-                ms = time_ms(torch, lambda: attn.attention(q, k, v), iters)
-                plain_ms = time_ms(torch, lambda: attn.attention_plain(q, k, v), iters)
-                lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), iters)
+                plan = attn.attention_plan(b, h, t, HEAD_DIM, dtype)
+                info = attn.kernel_info(dtype, HEAD_DIM, plan.splits)
+                regs = ptxas[(str(dtype).replace("torch.", ""), -(-HEAD_DIM // 64))]
+                iters = 50 if b * t >= 1024 else 200
+                ms = graph_ms(torch, lambda: attn.attention(q, k, v), iters)
+                eager = time_ms(torch, lambda: attn.attention(q, k, v), iters)
+                plain_ms = graph_ms(torch, lambda: attn.attention_plain(q, k, v), iters)
+                lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), iters)
                 bound, by_ops = attention_bound_ms(b, h, t, HEAD_DIM, q.element_size(), peak)
                 row = {"level": name, "B": b, "T": t, "H": h, "d": HEAD_DIM,
                        "dtype": str(dtype).replace("torch.", ""), "per_unet_call": per_call,
-                       "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": lib_ms, "bound_ms": bound,
-                       "bound_by": "operations" if by_ops else "bytes"}
+                       "bq": attn.QUERY_TILE, "splits": plan.splits, "blocks": plan.blocks,
+                       "max_abs_err": err, "tol": tol, "ms": ms, "eager_ms": eager,
+                       "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+                       "bound_by": "operations" if by_ops else "bytes",
+                       "share_of_bound": bound / ms, **regs, **info}
                 rows.append(row)
                 log("attention_shape " + json.dumps(row))
     return rows
+
+
+def phase_sweep(torch, attn):
+    """``--sweep``: the kernel's time at every plan at the B=1 float32 levels."""
+    for name, t, h, _ in LEVELS:
+        g = torch.Generator(device="cuda").manual_seed(3)
+        q, k, v = (head_view(torch.randn((1, t, h * HEAD_DIM), generator=g, device="cuda"),
+                             1, h, t, HEAD_DIM) for _ in range(3))
+        ref = attn.attention_plain(q, k, v)
+        ntiles = -(-t // attn.KEY_TILE)
+        for splits in range(1, attn.MAX_SPLITS + 1):
+            per = -(-ntiles // splits)
+            if -(-ntiles // per) != splits:
+                continue
+            plan = attn.AttentionPlan(splits, per * attn.KEY_TILE,
+                                      h * -(-t // attn.QUERY_TILE) * splits)
+            out = attn.launch(q, k, v, plan)
+            err = (out - ref).abs().max().item()
+            if not err <= F32_TOL:
+                fail(f"sweep {name} {plan}: max|kernel-plain| {err}")
+            ms = graph_ms(torch, lambda: attn.launch(q, k, v, plan), 50)
+            clusters = attn.kernel_info(torch.float32, HEAD_DIM, splits)["max_active_clusters"]
+            log("sweep " + json.dumps({"level": name, "splits": splits, "blocks": plan.blocks,
+                                       "ms": ms, "max_abs_err": err,
+                                       "max_active_clusters": clusters}))
 
 
 def nondegenerate_(torch, model, seed):
@@ -199,8 +291,14 @@ def profile_unet(torch, fn):
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     total = sum(e.self_device_time_total for e in events)
+    attn_us = sum(e.self_device_time_total for e in events if "attention_fwd" in e.key)
+    copies = [e for e in events if "copy" in e.key.lower()]
     lines = [f"profile: one UNet call, {total / 1e3:.3f} ms of device time in "
-             f"{len(events)} kernel names"]
+             f"{len(events)} kernel names",
+             f"profile: attention kernel {attn_us / 1e3:.3f} ms = "
+             f"{attn_us / total if total else 0.0:.1%} of the device time",
+             f"profile: copy kernels {sum(e.count for e in copies)} launches, "
+             f"{sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms"]
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         share = e.self_device_time_total / total if total else 0.0
         lines.append(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms {share:6.1%} "
@@ -312,8 +410,16 @@ def main() -> None:
         for line in report.strip().splitlines():
             log("  " + line)
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    ptxas = ptxas_entries(reports["attention"])
+    log("ptxas attention_fwd<dtype, float4 cols a lane>: " + json.dumps(
+        {f"{dt},{c}": e for (dt, c), e in sorted(ptxas.items())}))
+    at_192 = [e for (_, c), e in ptxas.items() if c == -(-HEAD_DIM // 64)]
+    if len(at_192) != 2 or any(e["spill_bytes"] for e in at_192):
+        fail(f"expected 2 spill-free instantiations at d = {HEAD_DIM}, got {at_192}")
 
-    rows = phase_kernels(torch, attn)
+    rows = phase_kernels(torch, attn, ptxas)
+    if "--sweep" in sys.argv[1:]:
+        phase_sweep(torch, attn)
 
     cfg = Config()
     predictor = FramePredictor.create(cfg, seed=0, device="cuda")
@@ -332,10 +438,18 @@ def main() -> None:
     def per_unet_call(key):
         return sum(r[key] * per_call[r["level"]] for r in main_rows)
 
-    ops_ms = sum(4.0 * r["H"] * r["T"] ** 2 * r["d"] / F32_PEAK * 1e3 * r["per_unet_call"]
-                 for r in main_rows)
-    byte_ms = sum(16.0 * r["H"] * r["T"] * r["d"] / HBM_BPS * 1e3 * r["per_unet_call"]
-                  for r in main_rows)
+    # each level's bound is the larger of its two times; a call's is their sum
+    ops_ms = sum(r["bound_ms"] * r["per_unet_call"] for r in main_rows
+                 if r["bound_by"] == "operations")
+    byte_ms = sum(r["bound_ms"] * r["per_unet_call"] for r in main_rows
+                  if r["bound_by"] == "bytes")
+    for r in main_rows:
+        log(f"attention {r['level']} B=1 float32: kernel {r['ms']:.4f} ms, SDPA "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['share_of_bound']:.1%} of bound), {r['blocks']} blocks")
+    log(f"attention per UNet call: kernel {per_unet_call('ms'):.4f} ms, SDPA "
+        f"{per_unet_call('library_ms'):.4f} ms, bound {ops_ms + byte_ms:.5f} ms "
+        f"({(ops_ms + byte_ms) / per_unet_call('ms'):.1%} of bound)")
     log("summary " + json.dumps({
         "unet_ms": unet["unet_ms"], "cycle_wall_s": [c["wall_s"] for c in cycles],
         "accepted": [c["accepted"] for c in cycles], "numerics": numerics(),
@@ -350,7 +464,7 @@ def main() -> None:
         # the 10 launches of one UNet call at B=1 in float32 (3 at 32x32, 3 at 16x16, 4 at 8x8)
         "ms": per_unet_call("ms"),
         "plain_ms": per_unet_call("plain_ms"),
-        "bound_ms": max(ops_ms, byte_ms),
+        "bound_ms": ops_ms + byte_ms,
         "bound_by": "operations" if ops_ms >= byte_ms else "bytes",
         "library_ms": per_unet_call("library_ms"),
     }]

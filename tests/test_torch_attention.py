@@ -1,9 +1,12 @@
 """tvc_torch attention (plain version and wrapper) against the JAX package's
-oracle and its Pallas kernel (interpret mode).
+oracle and its Pallas kernel (interpret mode), and the kernel's launch plan.
 
 Tolerance: float32 einsum attention in two frameworks, max |diff| <= 2e-5 on
 N(0, 1) inputs (the bound tests/test_pallas_attention.py uses).
 """
+
+import inspect
+import math
 
 import numpy as np
 import pytest
@@ -13,7 +16,8 @@ import jax.numpy as jnp
 
 from tvc.ops.pallas_attention import attention_pallas, attention_reference
 from tvc_torch.ops import attention as attn_mod
-from tvc_torch.ops.attention import attention, attention_plain
+from tvc_torch.ops.attention import (KEY_TILE, MAX_SPLITS, QUERY_TILE, attention,
+                                     attention_plain, attention_plan)
 
 SHAPES = [
     (2, 3, 64, 32),    # tests/test_pallas_attention.py
@@ -84,4 +88,77 @@ def test_wrapper_rejects_bad_input(case):
     elif case == "meta":
         q, k, v = (x.to("meta") for x in (q, k, v))
     with pytest.raises((TypeError, ValueError)):
+        attention(q, k, v)
+
+
+# the flagship levels at B = 1 and 8, ragged T (33, 100, 1000, 1023) and tiny heads
+PLAN_SHAPES = [(1, 2, 1024, 192), (1, 3, 256, 192), (1, 4, 64, 192), (8, 2, 1024, 192),
+               (8, 3, 256, 192), (8, 4, 64, 192), (1, 2, 33, 192), (2, 3, 100, 192),
+               (1, 2, 1000, 192), (1, 2, 1023, 192), (1, 1, 1, 8), (3, 5, 77, 30)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plan_covers_every_key_once(shape, dtype):
+    """Block s of a cluster takes keys [s * kps, min(t, (s + 1) * kps)): the
+    ranges must tile [0, t) with none empty, in whole key tiles."""
+    b, h, t, d = shape
+    plan = attention_plan(b, h, t, d, dtype)
+    assert 1 <= plan.splits <= MAX_SPLITS
+    assert plan.keys_per_split > 0 and plan.keys_per_split % KEY_TILE == 0
+    seen = np.zeros(t, np.int64)
+    for s in range(plan.splits):
+        lo, hi = s * plan.keys_per_split, min(t, (s + 1) * plan.keys_per_split)
+        assert lo < hi, f"split {s} of {plan} is empty"
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    assert plan.blocks == b * h * math.ceil(t / QUERY_TILE) * plan.splits
+
+
+def test_plan_depends_on_shape_and_dtype_alone(monkeypatch):
+    """The plan fixes the order of the kernel's sums, so a sender and a receiver
+    must get the same plan whatever card they run on: it reads no device."""
+    assert list(inspect.signature(attention_plan).parameters) == ["b", "h", "t", "d", "dtype"]
+    want = [attention_plan(*s, torch.float32) for s in PLAN_SHAPES]
+
+    def no_device(*args, **kwargs):
+        raise AssertionError("attention_plan queried the device")
+
+    for name in ("is_available", "device_count", "get_device_properties", "current_device"):
+        monkeypatch.setattr(torch.cuda, name, no_device)
+    attention_plan.cache_clear()  # compute the plans again under the patch
+    assert [attention_plan(*s, torch.float32) for s in PLAN_SHAPES] == want
+    assert [attention_plan(*s, torch.bfloat16) for s in PLAN_SHAPES] == want
+
+
+@pytest.mark.parametrize("shape,splits,blocks", [
+    ((1, 2, 1024, 192), 3, 96),  # 32x32: 16 query tiles x 2 heads x 3 splits of 352 keys
+    ((1, 3, 256, 192), 8, 96),   # 16x16: 4 x 3 x 8 splits of one 32-key tile
+    ((1, 4, 64, 192), 2, 8),     # 8x8: 1 x 4 x 2 splits of one tile
+], ids=["32x32", "16x16", "8x8"])
+def test_plan_flagship_block_counts(shape, splits, blocks):
+    plan = attention_plan(*shape, torch.float32)
+    assert (plan.splits, plan.blocks) == (splits, blocks)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 64, 192), (2, 3, 33, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_wrapper_takes_strided_heads_on_cpu(shape):
+    """q, k, v as the attention block passes them: (B, H, T, d) views of
+    (B, T, H * d) projections, not contiguous."""
+    b, h, t, d = shape
+    rng = np.random.RandomState(11)
+    x = [rng.randn(b, t, h * d).astype(np.float32) for _ in range(3)]
+    views = [torch.from_numpy(a).view(b, t, h, d).transpose(1, 2) for a in x]
+    assert not any(v.is_contiguous() for v in views)
+    heads = [np.ascontiguousarray(a.reshape(b, t, h, d).transpose(0, 2, 1, 3)) for a in x]
+    want = np.asarray(attention_reference(*map(jnp.asarray, heads)))
+    got = attention(*views)
+    assert got.shape == (b, h, t, d)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
+def test_wrapper_rejects_transposed_head_dim():
+    q, k, v = (torch.randn(1, 2, 192, 64).transpose(2, 3) for _ in range(3))  # (1, 2, 64, 192)
+    with pytest.raises(ValueError, match="unit stride"):
         attention(q, k, v)

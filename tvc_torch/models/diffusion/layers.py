@@ -165,11 +165,12 @@ class AttnBlockpp(nn.Module):
         t, heads = h * w, self.heads
         tok = self.GroupNorm_0(x).flatten(2).transpose(1, 2)  # (B, T, C)
 
-        def split_heads(y):  # (B, T, C) -> (B, heads, T, C / heads)
-            return y.view(b, t, heads, c // heads).transpose(1, 2).contiguous()
+        def split_heads(y):  # (B, T, C) -> a (B, heads, T, C / heads) view
+            return y.view(b, t, heads, c // heads).transpose(1, 2)
 
         out = attention(split_heads(self.NIN_0(tok)), split_heads(self.NIN_1(tok)),
                         split_heads(self.NIN_2(tok)))
+        # on the card the kernel's output lies as (B, T, heads, d): a view, no copy
         out = self.NIN_3(out.transpose(1, 2).reshape(b, t, c))
         out = out.transpose(1, 2).reshape(b, c, h, w)
         if not self.skip_rescale:

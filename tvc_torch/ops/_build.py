@@ -4,7 +4,9 @@ Each source under ``tvc_torch/csrc`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, in ``tvc_torch/build``, on
 first use; the wrappers load it with ``ctypes``. Nothing is built at import
 time, and nothing here runs on a host without the CUDA toolkit unless a kernel
-is launched. Sources are compiled in parallel, one ``nvcc`` each.
+is launched. Sources are compiled in parallel, one ``nvcc`` each. A library is
+rebuilt when its key, a hash of every file under ``csrc`` and of the flags,
+differs from the key it was built with.
 
     python -m tvc_torch.ops._build      # build every kernel, print ptxas reports
 """
@@ -12,6 +14,7 @@ is launched. Sources are compiled in parallel, one ``nvcc`` each.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -52,15 +55,29 @@ def report_path(name: str) -> Path:
     return BUILD / f"lib{name}.ptxas.txt"
 
 
+def key_path(name: str) -> Path:
+    return BUILD / f"lib{name}.key"
+
+
+def build_key(name: str) -> str:
+    """Hash of the kernel's name, the flags and every file under ``csrc`` (a
+    source includes what it likes from there)."""
+    h = hashlib.sha256("\0".join([name, SOURCES[name], *NVCC_FLAGS]).encode())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(b"\0" + path.relative_to(CSRC).as_posix().encode() + b"\0")
+        h.update(path.read_bytes())
+    return h.hexdigest()
+
+
 def _stale(name: str) -> bool:
-    so = lib_path(name)
-    src = CSRC / SOURCES[name]
-    return not so.exists() or so.stat().st_mtime < src.stat().st_mtime
+    kp = key_path(name)
+    return not lib_path(name).exists() or not kp.exists() or kp.read_text() != build_key(name)
 
 
 def build(names: Iterable[str] = tuple(SOURCES), force: bool = False) -> Dict[str, str]:
-    """Compile the named kernels (all by default) that are missing or older than
-    their source; one ``nvcc`` process per source, all started together.
+    """Compile the named kernels (all by default) that are missing or were built
+    from other sources or flags; one ``nvcc`` process per source, all started
+    together.
     Returns each kernel's ptxas report."""
     names = list(names)
     BUILD.mkdir(parents=True, exist_ok=True)
@@ -69,10 +86,10 @@ def build(names: Iterable[str] = tuple(SOURCES), force: bool = False) -> Dict[st
     for n in todo:
         tmp = BUILD / f"lib{n}.{os.getpid()}.tmp.so"
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
-        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                          text=True))
+        procs[n] = (tmp, build_key(n), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
-    for n, (tmp, p) in procs.items():
+    for n, (tmp, key, p) in procs.items():
         out, _ = p.communicate()
         report_path(n).write_text(out)
         if p.returncode != 0:
@@ -80,6 +97,7 @@ def build(names: Iterable[str] = tuple(SOURCES), force: bool = False) -> Dict[st
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, lib_path(n))
+            key_path(n).write_text(key)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return {n: report_path(n).read_text() if report_path(n).exists() else "" for n in names}

@@ -2,15 +2,21 @@
 
 ``attention(q, k, v)`` computes, per (batch, head), ``softmax(q k^T d^-1/2) v``
 on (B, H, T, d) tensors with f32 softmax and f32 accumulation, and returns the
-input dtype. On a CUDA tensor it launches the hand-written Hopper kernel of
-``tvc_torch/csrc/attention.cu`` (built on first use) or raises; on a CPU
-tensor it runs ``attention_plain``, the plain PyTorch version of the same
-function, which is also the kernel's oracle on the card.
+input dtype. The inputs may be strided views (the attention block passes the
+heads of its (B, T, C) projections) as long as the last dim has unit stride;
+on the card the output is a (B, H, T, d) view of a (B, T, H, d) tensor, so
+folding the heads back into channels is free. On a CUDA tensor it launches the
+hand-written Hopper kernel of ``tvc_torch/csrc/attention.cu`` (built on first
+use) or raises; on a CPU tensor it runs ``attention_plain``, the plain PyTorch
+version of the same function, which is also the kernel's oracle on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -18,6 +24,16 @@ from tvc_torch.ops import _build
 
 MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+QUERY_TILE = 64     # query rows per block of the kernel: 8 a warp
+KEY_TILE = 32       # keys per shared-memory tile of the kernel
+MAX_SPLITS = 8      # the portable thread-block cluster size
+# Split the keys while a launch stays within this many blocks. A block takes
+# 155 KB of shared memory at d = 192, so it holds an SM alone, and a cluster is
+# placed whole inside one GPC: an H100 SXM holds 30 clusters of 4 or 15 of 8
+# at once (cudaOccupancyMaxActiveClusters), not 132 blocks, and a launch past
+# that runs a second wave. 96 blocks fit in one wave at every cluster size.
+MAX_BLOCKS = 96
 
 # Kernel launches since the last reset_launches(). Counted only where the
 # CUDA kernel is launched, never on the CPU path.
@@ -27,6 +43,34 @@ launches = 0
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+class AttentionPlan(NamedTuple):
+    splits: int          # blocks along the keys, one thread-block cluster
+    keys_per_split: int  # a multiple of KEY_TILE; the last split may be shorter
+    blocks: int          # blocks of the launch
+
+
+@functools.lru_cache(maxsize=1024)
+def attention_plan(b: int, h: int, t: int, d: int, dtype: torch.dtype) -> AttentionPlan:
+    """How the kernel cuts a (b, h, t, d) launch into blocks of
+    ``QUERY_TILE`` queries: a function of the shape and dtype alone, never of
+    the card, so that a sender and a receiver on different parts sum in the
+    same order and get the same bytes.
+
+    The keys of each query tile are split into as many ranges as keep the
+    launch within ``MAX_BLOCKS`` blocks, at most ``MAX_SPLITS`` and one key
+    tile a range; the ranges are whole key tiles and none is empty."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"attention supports float32 and bfloat16, got {dtype}")
+    if not 0 < d <= MAX_HEAD_DIM or b < 1 or h < 1 or t < 1:
+        raise ValueError(f"no attention plan for shape {(b, h, t, d)}")
+    ntiles = math.ceil(t / KEY_TILE)
+    groups = b * h * math.ceil(t / QUERY_TILE)
+    splits = max(1, min(MAX_SPLITS, ntiles, MAX_BLOCKS // groups))
+    per = math.ceil(ntiles / splits)
+    splits = math.ceil(ntiles / per)
+    return AttentionPlan(splits, per * KEY_TILE, groups * splits)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -51,38 +95,62 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise TypeError(f"attention supports float32 and bfloat16, got {q.dtype}")
     if not 0 < q.shape[-1] <= MAX_HEAD_DIM:
         raise ValueError(f"head dim must be in 1..{MAX_HEAD_DIM}, got {q.shape[-1]}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("attention expects contiguous q, k and v")
+    if q.shape[-1] > 1 and (q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1):
+        raise ValueError("attention expects q, k and v with unit stride along the head dim")
+
+
+_Strides = ctypes.c_longlong * 12
 
 
 def _kernel():
     lib = _build.load("attention")
     fn = lib.tvc_attention_forward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [
+            ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plan: AttentionPlan) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors that ``_check`` accepts, with a given
+    plan (the kernel refuses one that leaves a key out); ``attention`` passes
+    ``attention_plan``'s, ``chip_smoke.py --sweep`` others. Counts one launch."""
+    global launches
+    b, h, t, d = q.shape
+    fn = _kernel()
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = _Strides(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b, h, t, d,
+             d ** -0.5, _DTYPE_CODES[q.dtype], plan.splits, plan.keys_per_split, q.device.index,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attention kernel launch failed with CUDA error {err} "
+                           f"at shape {(b, h, t, d)} {q.dtype} with {plan}")
+    launches += 1
+    return out
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(B, H, T, d) fused attention: the CUDA kernel on the card, the plain
     version for CPU tensors."""
-    global launches
     _check(q, k, v)
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"attention runs on cuda or cpu tensors, got {q.device}")
-    b, h, t, d = q.shape
-    fn = _kernel()
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t, d,
-                 d ** -0.5, _DTYPE_CODES[q.dtype], stream)
+    return launch(q, k, v, attention_plan(*q.shape, q.dtype))
+
+
+def kernel_info(dtype: torch.dtype, d: int, splits: int) -> dict:
+    """What a launch at head dim ``d`` takes on the current card: shared
+    memory a block, and how many clusters of ``splits`` blocks fit at once."""
+    fn = _build.load("attention").tvc_attention_kernel_info
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 2)()
+    err = fn(_DTYPE_CODES[dtype], d, splits, info)
     if err != 0:
-        raise RuntimeError(f"attention kernel launch failed with CUDA error {err} "
-                           f"at shape {(b, h, t, d)} {q.dtype}")
-    launches += 1
-    return out
+        raise RuntimeError(f"attention kernel info failed with CUDA error {err}")
+    return {"smem_bytes": info[0], "max_active_clusters": info[1]}
