@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive tvc_torch's predict-and-decide cycle on one NVIDIA GPU, at full width.
+"""Drive tvc_torch's main path on one NVIDIA GPU at full width: a whole
+30-frame GOP coded into TVC2 containers and a payload, and rebuilt byte for
+byte by a receiver in a fresh process.
 
     python3 chip_smoke.py
 
@@ -7,7 +9,8 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions and the
    numerics flags the port sets;
-2. the build of every kernel from ``tvc_torch/csrc`` (with ``-Xptxas -v``);
+2. the build of every kernel from ``tvc_torch/csrc`` (with ``-Xptxas -v``) and
+   of the host rANS coder into ``tvc_torch/build``;
 3. every kernel against its plain PyTorch version on the card, at the shapes
    and in the layout of the flagship UNet (strided heads of (B, T, C)
    projections; B = 1 and 8; float32 and bfloat16), two launches bit-identical,
@@ -18,12 +21,20 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 4. the full-width UNet (default ``Config()``, 262.1M parameters, seeded random
    weights): one forward through the kernel against one through the plain
    attention on the card, its time, and a profile of one call;
-5. the main path: three predict-and-decide cycles at B = 1 through
-   ``Sender.update`` (101 UNet calls each) on a seeded synthetic 30-frame
-   128x128 video, whose first two frames stand in for decoded keyframes;
-   every cycle must launch the attention kernel exactly 1010 times;
-6. determinism: cycle 1 rerun with the same generator seed must give a
-   byte-identical prediction (the receiver regenerates frames that way).
+5. one predict-and-decide cycle at B = 1 through ``Sender.update`` (101 UNet
+   calls, 1010 attention launches) on a seeded synthetic 30-frame 128x128
+   video, and its rerun with the same generator seed, which must be
+   byte-identical (the receiver regenerates frames that way);
+6. the full-width ELIC keyframe codec (default ``CodecConfig``, seeded random
+   weights) on the video's first two frames: compress, TVC2 container,
+   decompress, with ``entropy_backend="device"`` and ``"cpu"``; the sender's
+   reconstruction must equal the receiver's byte for byte;
+7. the main path: ``run_gop`` over the 30-frame video with the full-width UNet
+   and ELIC (``"device"`` backend), the payload written by the CLI's own
+   function, then ``python -m tvc_torch.cli gop receive`` in a fresh process,
+   whose frames must equal the sender's byte for byte. The sender must launch
+   the attention kernel 1010 times per update, and take at least one accepted
+   prediction and one fallback pair.
 
 The last lines are the ``kernels`` JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -39,6 +50,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,11 +66,21 @@ LEVELS = [("32x32", 1024, 2, 3), ("16x16", 256, 3, 3), ("8x8", 64, 4, 4)]
 HEAD_DIM = 192
 F32_TOL = 1e-4       # max |kernel - plain| on N(0, 1) inputs, float32
 UNET_REL_TOL = 1e-4  # full-width forward: max |kernel - plain| / max |plain|
-CYCLES = 3
-# LPIPS rho of the accept decision. The seeded random LPIPS weights score this
-# video's predictions at about 0.10-0.12 (H100 run of this script), so a rho
-# inside that range makes the cycles take both the accept and the reject path.
+# LPIPS rho of the bare cycle of phase 5. The seeded random LPIPS weights score
+# this video's predictions from its first two frames at about 0.10-0.12 (H100
+# run of this script).
 THRESHOLD = 0.119
+GOP_FRAMES = 30
+# LPIPS rho of the GOP (phase 7). Its predictions are conditioned on frames
+# decoded by a random-weight ELIC (about 5 dB PSNR), not on the video's own
+# frames, so they score higher than phase 5's: on an H100, an all-fallback run
+# of this GOP scored the first predicted frame of its 14 updates at 0.12816
+# (the first update) and 0.12841-0.13523 (the others). A rho just above the
+# first update's score accepts that prediction and rejects most predictions
+# made from a decoded pair, so the GOP takes both paths.
+GOP_THRESHOLD = 0.1285
+GOP_THRESHOLD_REASON = ("just above the first update's first-frame LPIPS (0.12816 on an H100), "
+                        "below most first-frame scores from decoded pairs (0.12841-0.13523)")
 
 
 def fail(msg: str) -> None:
@@ -223,20 +245,6 @@ def phase_sweep(torch, attn):
                                        "max_active_clusters": clusters}))
 
 
-def nondegenerate_(torch, model, seed):
-    """Redraw the layers the DDPM init scales to ~0 (each attention block's
-    output NIN and the final conv) with the unit-scale init, so that the
-    attention and the output carry signal in a run on random weights."""
-    from tvc_torch.models.diffusion.layers import NIN, DDPMConv, default_init_
-
-    g = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, (NIN, DDPMConv)) and m.init_scale == 0.0:
-                w = m.W if isinstance(m, NIN) else m.weight
-                w.copy_(default_init_(torch.empty(w.shape), 1.0, g))
-
-
 def phase_unet(torch, attn, layers, predictor):
     """Phase 4: the full-width forward through the kernel against the plain attention."""
     from unittest import mock
@@ -321,11 +329,9 @@ def synthetic_video(n=30, size=128, seed=7):
     return np.clip(video, 0.0, 1.0).astype(np.float32)
 
 
-def phase_cycles(torch, attn, sender):
-    """Phase 5 (the main path) and phase 6 (determinism)."""
-    video = synthetic_video()
+def phase_cycle(torch, attn, sender, video):
+    """Phase 5: one bare cycle from the video's first two frames, and its rerun."""
     n_cond = sender.cfg.data.num_frames_cond
-    # the first frames stand in for the decoded keyframe pair (the codec is not ported yet)
     x_ge, d = video[:, :n_cond], np.ones((1, n_cond), np.int64)
     preds = []
     generate = sender.predictor.generate
@@ -336,49 +342,159 @@ def phase_cycles(torch, attn, sender):
         return out
 
     sender.predictor.generate = recording_generate
-    start_state = (x_ge, d)
     per_call = sender.predictor.n_steps * sum(n for *_, n in LEVELS)
-    cycles = []
-    attn.reset_launches()  # the main path starts here
-    for i in range(CYCLES):
-        before, t_before = attn.launches, x_ge.shape[1]
+    try:
+        attn.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        gen = torch.Generator(device="cuda").manual_seed(1000 + i)
-        d, x_ge = sender.update(gen, video, x_ge, d)
+        _, ge = sender.update(torch.Generator(device="cuda").manual_seed(1000), video, x_ge, d)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = attn.launches - before
-        accepted = x_ge.shape[1] - t_before
+        launches = attn.launches
         pred = preds[-1]
-        scores = sender.lpips(pred[0], video[0, t_before:t_before + pred.shape[1]])
-        row = {"cycle": i + 1, "wall_s": wall, "accepted": accepted, "attention_launches":
-               launches, "unet_calls": sender.predictor.n_steps,
+        scores = sender.lpips(pred[0], video[0, n_cond:n_cond + pred.shape[1]])
+        row = {"wall_s": wall, "accepted": ge.shape[1] - n_cond, "attention_launches": launches,
+               "unet_calls": sender.predictor.n_steps,
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "lpips": [round(x, 5) for x in scores.tolist()], "threshold": sender.threshold}
         log("cycle " + json.dumps(row))
         if launches != per_call:
-            fail(f"cycle {i + 1} launched the attention kernel {launches} times, not {per_call}")
+            fail(f"the cycle launched the attention kernel {launches} times, not {per_call}")
         if pred.shape != (1, sender.cfg.data.num_frames, 128, 128, 3) or \
                 not torch.isfinite(pred).all() or pred.min() < 0 or pred.max() > 1:
-            fail(f"cycle {i + 1}: prediction of shape {tuple(pred.shape)} is not frames in [0,1]")
-        if accepted == 0:  # fallback pair: the next frames are sent (stand-in for the codec)
-            t = x_ge.shape[1]
-            x_ge = np.concatenate([x_ge, video[:, t:t + n_cond]], axis=1)
-            d = np.concatenate([d, np.ones((1, n_cond), np.int64)], axis=1)
-        cycles.append(row)
-    main_launches = attn.launches  # read right after the main path
-
-    gen = torch.Generator(device="cuda").manual_seed(1000)
-    sender.update(gen, video, *start_state)
-    same = preds[-1].cpu().numpy().tobytes() == preds[0].cpu().numpy().tobytes()
-    log(f"determinism: cycle 1 rerun with the same seed is "
+            fail(f"the cycle's prediction of shape {tuple(pred.shape)} is not frames in [0,1]")
+        sender.update(torch.Generator(device="cuda").manual_seed(1000), video, x_ge, d)
+        same = preds[-1].cpu().numpy().tobytes() == preds[0].cpu().numpy().tobytes()
+    finally:
+        sender.predictor.generate = generate
+    log(f"determinism: the cycle rerun with the same seed is "
         f"{'byte-identical' if same else 'DIFFERENT'}")
     if not same:
         fail("the rerun prediction is not byte-identical")
-    sender.predictor.generate = generate
-    return cycles, main_launches
+    return row
+
+
+def timed(torch, fn):
+    """(result, host seconds) of ``fn()``, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_codec(torch, model, video):
+    """Phase 6: a full-width keyframe pair through both entropy backends."""
+    from tvc_torch.metrics.pixel import psnr
+    from tvc_torch.models.codec import container
+    from tvc_torch.models.codec.coding import ELICCoder
+    from tvc_torch.pipeline.keyframe import per_frame_bits
+
+    x = video[0, :2]
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"elic: {n_params} parameters ({n_params / 1e6:.2f}M), N {model.N}, M {model.M}, "
+        f"groups {model.groups}")
+    rows = {}
+    for backend in ("device", "cpu"):
+        coder = ELICCoder(model, backend)
+        warm = coder.compress(x)
+        coder.decompress(warm["strings"], warm["shape"])
+        enc, t_enc = timed(torch, lambda: coder.compress(x, return_recon=True))
+        blob = container.serialize(enc, entropy_backend=backend)
+        got = container.deserialize(blob, expect_entropy_backend=backend)
+        dec, t_dec = timed(torch, lambda: coder.decompress(got["strings"], got["shape"]))
+        same = enc["x_hat"].tobytes() == dec["x_hat"].tobytes()
+        bits = per_frame_bits(enc["strings"], 2)
+        row = {"backend": backend, "container_bytes": len(blob), "bits_per_frame": bits,
+               "bpp": sum(bits) / x[..., 0].size,
+               "psnr_db": float(np.mean([psnr(a, b) for a, b in zip(x, enc["x_hat"])])),
+               "encode_s": t_enc, "decode_s": t_dec, "encode_phases_s": enc["time"],
+               "decode_phases_s": dec["time"], "byte_identical": same}
+        log("codec_pair " + json.dumps(row))
+        if enc["x_hat"].shape != x.shape or not np.isfinite(enc["x_hat"]).all():
+            fail(f"codec ({backend}): reconstruction of shape {enc['x_hat'].shape} is not frames")
+        if not same:
+            fail(f"codec ({backend}): the receiver's reconstruction differs from the sender's")
+        rows[backend] = row
+    return {"n_params": n_params, **rows}
+
+
+def phase_gop(torch, attn, sender, coder, video, config_mods):
+    """Phase 7, the main path: a 30-frame GOP, its payload, and a receiver in a
+    fresh process, which is given ``config_mods`` (the sender's config)."""
+    from tvc_torch import cli
+    from tvc_torch.core.runtime import numerics_stamp
+    from tvc_torch.pipeline.sender import run_gop
+
+    cfg = sender.cfg
+    per_update = sender.predictor.n_steps * sum(n for *_, n in LEVELS)
+    scores = []
+    lpips = sender.lpips
+
+    def recording_lpips(a, b):
+        out = lpips(a, b)
+        scores.append([round(v, 5) for v in out.tolist()])
+        return out
+
+    sender.lpips = recording_lpips
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        attn.reset_launches()  # the main path starts here
+        gop, wall = timed(torch, lambda: run_gop(sender, coder, video[0], cfg.seed, GOP_FRAMES,
+                                                  cfg.codec.patch, keep_streams=True))
+        launches = attn.launches  # read right after the main path
+    finally:
+        sender.lpips = lpips
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    d = [int(v) for v in gop.d[0]]
+    row = {"n_updates": gop.n_updates, "accepts": gop.accepts, "d": d, "bits": gop.bits,
+           "bpp": gop.bpp, "sender_wall_s": wall, "update_s": gop.update_s,
+           "keyframe_events": len(gop.containers), "keyframe_s": gop.keyframe_s,
+           "container_bytes": [len(c) for c in gop.containers], "lpips": scores,
+           "threshold": sender.threshold,
+           "threshold_margin": float(np.min(np.abs(np.concatenate(scores) - sender.threshold))),
+           "attention_launches": launches,
+           "peak_mem_gb": peak}
+    log("gop_sender " + json.dumps(row))
+    if launches != per_update * gop.n_updates:
+        fail(f"the GOP launched the attention kernel {launches} times, not "
+             f"{per_update} x {gop.n_updates}")
+    if (len(d) != GOP_FRAMES or len(gop.containers) != 1 + gop.accepts.count(0)
+            or d.count(0) != sum(gop.accepts) or len(gop.accepts) != gop.n_updates):
+        fail("d, accepts and the containers disagree")
+    x_ge = gop.x_ge[0]
+    if x_ge.shape != (GOP_FRAMES,) + video.shape[2:] or x_ge.dtype != np.float32 or \
+            not np.isfinite(x_ge).all() or x_ge.min() < 0 or x_ge.max() > 1:
+        fail(f"the GOP's frames ({x_ge.shape}, {x_ge.dtype}) are not 30 frames in [0, 1]")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        payload, out = os.path.join(tmp, "gop.tvcg"), os.path.join(tmp, "receiver.npy")
+        nbytes = cli.write_payload(payload, gop, cfg.seed, False,
+                                   numerics_stamp(coder.device, coder.entropy_backend))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tvc_torch.cli", "gop", "receive", "--payload", payload,
+             "--output-npy", out, "--device", coder.device.type, "--config-mod", *config_mods],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        recv_wall = time.perf_counter() - t0
+        for line in (proc.stdout + proc.stderr).strip().splitlines():
+            log("  receiver| " + line)
+        if proc.returncode != 0:
+            fail(f"the receiver process exited {proc.returncode}")
+        m = re.search(r"in ([0-9.]+) s \(models built in ([0-9.]+) s\)", proc.stdout)
+        rec = np.load(out)
+    same = rec.dtype == x_ge.dtype and rec.tobytes() == x_ge.tobytes()
+    recv = {"payload_bytes": nbytes, "receiver_wall_s": recv_wall,
+            "receiver_run_s": float(m.group(1)) if m else None,
+            "receiver_models_s": float(m.group(2)) if m else None, "byte_identical": same}
+    log("gop_receiver " + json.dumps(recv))
+    if not same:
+        fail("the receiver's frames differ from the sender's")
+    if 0 not in gop.accepts or max(gop.accepts) == 0:
+        fail(f"accepts {gop.accepts}: the GOP must take an accepted prediction and a fallback "
+             f"pair; move GOP_THRESHOLD ({GOP_THRESHOLD}) between the scores above")
+    return {**row, **recv}
 
 
 def main() -> None:
@@ -393,7 +509,6 @@ def main() -> None:
     from tvc_torch.models.diffusion import layers
     from tvc_torch.ops import _build
     from tvc_torch.ops import attention as attn
-    from tvc_torch.pipeline.predictor import FramePredictor
     from tvc_torch.pipeline.sender import Sender
 
     t_start = time.perf_counter()
@@ -421,14 +536,28 @@ def main() -> None:
     if "--sweep" in sys.argv[1:]:
         phase_sweep(torch, attn)
 
+    import tvc_torch.cli as cli
+    from tvc_torch.entropy import rans
+
+    rans_lib = rans.build(force=True)
+    log(f"built the rANS coder into {os.path.relpath(rans_lib, ROOT)}")
+
     cfg = Config()
-    predictor = FramePredictor.create(cfg, seed=0, device="cuda")
-    nondegenerate_(torch, predictor.model, seed=1)
+    cfg.codec.entropy_backend = "device"
+    predictor = cli.build_predictor(cfg, "cuda")
     unet = phase_unet(torch, attn, layers, predictor)
 
+    video = synthetic_video(n=GOP_FRAMES)
     lpips = LPIPSMetric.create(seed=0, device="cuda")
-    sender = Sender(THRESHOLD, cfg, predictor, lpips)
-    cycles, main_launches = phase_cycles(torch, attn, sender)
+    cycle = phase_cycle(torch, attn, Sender(THRESHOLD, cfg, predictor, lpips), video)
+
+    coder = cli.build_coder(cfg, "cuda")
+    codec = phase_codec(torch, coder.model, video)
+
+    log(f"gop threshold {GOP_THRESHOLD}: {GOP_THRESHOLD_REASON}")
+    gop = phase_gop(torch, attn, Sender(GOP_THRESHOLD, cfg, predictor, lpips), coder, video,
+                    ["codec.entropy_backend=device"])
+    main_launches = gop["attention_launches"]
     if main_launches == 0:
         fail("the main path launched no attention kernel")
 
@@ -451,8 +580,12 @@ def main() -> None:
         f"{per_unet_call('library_ms'):.4f} ms, bound {ops_ms + byte_ms:.5f} ms "
         f"({(ops_ms + byte_ms) / per_unet_call('ms'):.1%} of bound)")
     log("summary " + json.dumps({
-        "unet_ms": unet["unet_ms"], "cycle_wall_s": [c["wall_s"] for c in cycles],
-        "accepted": [c["accepted"] for c in cycles], "numerics": numerics(),
+        "unet_ms": unet["unet_ms"], "cycle_wall_s": cycle["wall_s"],
+        "codec_encode_s": {b: codec[b]["encode_s"] for b in ("device", "cpu")},
+        "codec_decode_s": {b: codec[b]["decode_s"] for b in ("device", "cpu")},
+        "gop_sender_wall_s": gop["sender_wall_s"], "gop_receiver_wall_s": gop["receiver_wall_s"],
+        "gop_receiver_run_s": gop["receiver_run_s"], "gop_n_updates": gop["n_updates"],
+        "gop_bpp": gop["bpp"], "gop_peak_mem_gb": gop["peak_mem_gb"], "numerics": numerics(),
         "total_s": time.perf_counter() - t_start}))
     kernels = [{
         "name": "attention",

@@ -144,3 +144,134 @@ def test_small_unet_forward_kernel_matches_plain(cuda):
     scale = ref.abs().max().item()
     assert scale > 1e-3
     assert (out - ref).abs().max().item() <= 1e-4 * scale
+
+
+# ---------------------------------------------------------------- the codec and the GOP
+
+
+def _pair(seed=0, size=128):
+    """Two smooth seeded frames, (2, size, size, 3) in [0, 1]."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    frames = [np.stack([0.5 + 0.4 * np.sin(2 * np.pi * (rng.uniform(0.5, 2) * xx + t * yy))
+                        for _ in range(3)], -1) for t in range(2)]
+    return np.clip(np.stack(frames) + 0.02 * rng.randn(2, size, size, 3), 0, 1).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def full_codec():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tvc_torch.core.config import CodecConfig
+    from tvc_torch.models.codec.elic import make_elic
+
+    return make_elic(CodecConfig(), seed=0, device="cuda")
+
+
+@pytest.mark.parametrize("backend", ["cpu", "device"])
+def test_full_width_pair_roundtrip_is_byte_identical(full_codec, backend):
+    from tvc_torch.models.codec import container
+    from tvc_torch.models.codec.coding import ELICCoder
+
+    coder = ELICCoder(full_codec, backend)
+    enc = coder.compress(_pair(), return_recon=True)
+    got = container.deserialize(container.serialize(enc, backend), expect_entropy_backend=backend)
+    dec = ELICCoder(full_codec, backend).decompress(got["strings"], got["shape"])
+    assert enc["x_hat"].shape == (2, 128, 128, 3)
+    assert enc["x_hat"].tobytes() == dec["x_hat"].tobytes()
+
+
+def test_full_width_pair_codes_like_its_frames(full_codec):
+    from tvc_torch.models.codec.coding import ELICCoder
+
+    coder = ELICCoder(full_codec, "device")
+    x = _pair(1)
+    pair = coder.compress(x)["strings"]
+    for f in range(2):
+        one = coder.compress(x[f: f + 1])["strings"]
+        assert one[1] == [pair[1][f]]
+        assert one[0] == [[[ph[f]] for ph in sl] for sl in pair[0]]
+
+
+def test_device_entropy_parameters_match_cpu(full_codec):
+    """Each phase of the chain on the card against the same phase on the host,
+    on the host's inputs: close (1e-5 of the largest value), not equal."""
+    import numpy as np
+
+    from tvc_torch.models.codec.coding import ELICCoder
+
+    host, card = ELICCoder(full_codec, "cpu"), ELICCoder(full_codec, "device")
+
+    def dev(t):
+        return None if t is None else t.to("cuda")
+
+    pairs = []
+    phase1, phase2 = host._phase1, host._phase2
+
+    def rec_phase1(i, prev_anchor, prev_nonanchor, first, lm, ls):
+        out = phase1(i, prev_anchor, prev_nonanchor, first, lm, ls)
+        pairs.append((out[2:], card._phase1(i, dev(prev_anchor), prev_nonanchor, dev(first),
+                                            dev(lm), dev(ls))[2:]))
+        return out
+
+    def rec_phase2(i, anchor_q, sup):
+        out = phase2(i, anchor_q, sup)
+        pairs.append((out[1:], card._phase2(i, anchor_q, dev(sup))[1:]))
+        return out
+
+    host._phase1, host._phase2 = rec_phase1, rec_phase2
+    with torch.no_grad():
+        z = full_codec.encode_transforms(torch.tensor(_pair(2)).permute(0, 3, 1, 2).cuda())[1]
+        z_hat = host.fb.quantize(z.cpu().numpy())[0]
+        card_hyper = full_codec.hyper_params(torch.tensor(z_hat).cuda())
+        host_hyper = host._chain.hyper_params(torch.tensor(z_hat))
+    for a, b in zip(host_hyper, card_hyper):
+        assert (a - b.cpu()).abs().max().item() <= 1e-5 * a.abs().max().item()
+    host.compress(_pair(2))
+    assert len(pairs) == 2 * 2 * full_codec.num_slices
+    differ = 0
+    for host_out, card_out in pairs:
+        for a, b in zip(host_out, card_out):
+            scale = float(np.abs(a).max())
+            assert float(np.abs(a - b).max()) <= 1e-5 * scale
+            differ += int(not np.array_equal(a, b))
+    print(f"{differ} of {2 * len(pairs)} parameter maps differ between the backends")
+
+
+def test_small_gop_receiver_rebuilds_the_sender_on_card():
+    """A narrow pipeline on the card: the receiver's frames are the sender's,
+    byte for byte, through accepted predictions and fallback pairs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from tvc_torch.core.config import CodecConfig
+    from tvc_torch.metrics.lpips import LPIPSMetric
+    from tvc_torch.models.codec.coding import ELICCoder
+    from tvc_torch.models.codec.elic import make_elic
+    from tvc_torch.pipeline.predictor import FramePredictor
+    from tvc_torch.pipeline.receiver import run_gop_receiver
+    from tvc_torch.pipeline.sender import Sender, run_gop
+
+    cfg = Config()
+    cfg.data.image_size = 64
+    cfg.data.num_frames = 3
+    cfg.model.ngf = 16
+    cfg.model.ch_mult = (1, 2)
+    cfg.model.num_res_blocks = 1
+    cfg.model.attn_resolutions = (32,)
+    cfg.model.n_head_channels = 8
+    cfg.model.num_classes = 20
+    cfg.sampling.subsample = 5
+    pred = FramePredictor.create(cfg, seed=0, device="cuda")
+    coder = ELICCoder(make_elic(CodecConfig(N=16, M=24, groups=(4, 4, 4, 4, 8)), device="cuda"),
+                      "device")
+    lp = LPIPSMetric.create(seed=0, device="cuda")
+    video = np.random.RandomState(3).rand(10, 64, 64, 3).astype(np.float32)
+    for threshold in (1e9, -1.0):
+        gop = run_gop(Sender(threshold, cfg, pred, lp), coder, video, seed=4, num_frames_total=10,
+                      keep_streams=True)
+        rec = run_gop_receiver(cfg, gop.accepts, gop.containers, coder, pred, 4, 10)
+        assert rec.tobytes() == gop.x_ge[0].tobytes()

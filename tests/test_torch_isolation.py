@@ -6,11 +6,14 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
-from tvc_torch.core.config import Config
+from tvc_torch import cli
+from tvc_torch.core.config import CodecConfig, Config
 from tvc_torch.metrics.lpips import LPIPSMetric
+from tvc_torch.models.codec.elic import make_elic
 from tvc_torch.models.diffusion.ncsnpp import UNetMoreDDPM
 from tvc_torch.pipeline.predictor import FramePredictor
 
@@ -59,8 +62,9 @@ def test_sources_name_no_jax(path):
                 assert m.split(".")[0] not in ("jax", "jaxlib", "flax", "tvc"), (f, m)
 
 
-@pytest.mark.parametrize("entry", ["unet", "predictor", "lpips"])
-def test_default_device_raises_without_a_card(entry):
+@pytest.mark.parametrize("entry", ["unet", "predictor", "lpips", "coder", "cli_codec",
+                                   "cli_gop_send", "cli_gop_receive"])
+def test_default_device_raises_without_a_card(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a card; the default device is valid here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -68,5 +72,41 @@ def test_default_device_raises_without_a_card(entry):
             UNetMoreDDPM(Config())
         elif entry == "predictor":
             FramePredictor.create(Config())
-        else:
+        elif entry == "lpips":
             LPIPSMetric.create()
+        elif entry == "coder":
+            make_elic(CodecConfig(N=16, M=24, groups=(4, 4, 4, 4, 8)))
+        else:
+            frames = tmp_path / "frames.npy"
+            np.save(frames, np.zeros((2, 64, 64, 3), np.float32))
+            cli.main({"cli_codec": ["codec", "--input-npy", str(frames)],
+                      "cli_gop_send": ["gop", "send", "--video-npy", str(frames), "--payload",
+                                       str(tmp_path / "p.tvcg"), "--allow-uncalibrated"],
+                      "cli_gop_receive": ["gop", "receive", "--payload",
+                                          str(tmp_path / "p.tvcg")]}[entry])
+
+
+_RANS_PROBE = """
+import numpy as np
+from tvc_torch.entropy import rans
+from tvc_torch.entropy.gaussian import GaussianCoder
+gc = GaussianCoder()
+idx = np.zeros(8, np.int32)
+assert gc.decompress(gc.compress(np.ones((1, 8), np.float32), idx, np.zeros((1, 8), np.float32)),
+                     idx, np.zeros((1, 8), np.float32)).sum() == 8
+maps = open("/proc/self/maps").read()
+print(str(rans.lib_path()) in maps, "librans_coder" in maps)
+"""
+
+
+def test_rans_coder_is_the_ports_own():
+    """The port codes through its own build of the rANS coder, never through
+    the JAX package's tracked tvc/entropy/cpp/librans_coder.so."""
+    tracked = os.path.join(ROOT, "tvc", "entropy", "cpp", "librans_coder.so")
+    before = os.stat(tracked).st_mtime_ns if os.path.exists(tracked) else None
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _RANS_PROBE], cwd=ROOT, env=env, check=True,
+                         capture_output=True, text=True, timeout=120).stdout.split()
+    assert out == ["True", "False"]
+    after = os.stat(tracked).st_mtime_ns if os.path.exists(tracked) else None
+    assert before == after

@@ -4,10 +4,12 @@ A second package beside the JAX reference ``tvc``; module names mirror it
 (``tvc_torch/core/config.py`` is the counterpart of ``tvc/core/config.py``,
 and so on). It imports ``torch`` and never ``jax`` or ``tvc``.
 
-This slice covers the predict-and-decide cycle: the NCSN++ UNet, the DDPM
-sampler, the frame predictor, LPIPS(alex)/PSNR and the sender's accept
-decision. The multi-head attention of every ``AttnBlockpp`` runs a CUDA
-kernel written for ``sm_90a`` (``tvc_torch/csrc/attention.cu``).
+It covers the main path: the ELIC keyframe codec with its rANS entropy
+coders, the NCSN++ UNet, the DDPM sampler, the frame predictor,
+LPIPS(alex)/PSNR, the sender's accept decision, the GOP loop, the receiver
+and the ``codec``/``gop`` command line (``python -m tvc_torch.cli``). The
+multi-head attention of every ``AttnBlockpp`` runs a CUDA kernel written for
+``sm_90a`` (``tvc_torch/csrc/attention.cu``); the rANS coder is host C++.
 
 Importing the package sets the numerics of ``tvc_torch.core.runtime``:
 no TF32, deterministic cuDNN, no cuDNN benchmarking.

@@ -37,6 +37,33 @@ def numerics() -> Dict[str, bool]:
     }
 
 
+def numerics_stamp(device, entropy_backend: str) -> Dict[str, str]:
+    """What decides a run's bits, as strings: the versions of torch, CUDA and
+    cuDNN, the card, the backend flags, the codec's entropy backend and the
+    attention kernel's build key; where the host computes something the
+    receiver must repeat, its CPU's vector capability, and on a CPU device
+    its thread count. A GOP payload carries it, and a receiver whose own
+    stamp differs refuses the payload."""
+    from tvc_torch.ops import _build
+
+    dev = resolve_device(device)
+    stamp = {
+        "torch": torch.__version__,
+        "cuda": str(torch.version.cuda),
+        "cudnn": str(torch.backends.cudnn.version()),
+        "device": dev.type,
+        "gpu": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "none",
+        "entropy_backend": entropy_backend,
+        "attention_build": _build.build_key("attention"),
+    }
+    stamp.update({k: str(v) for k, v in numerics().items()})
+    if dev.type == "cpu" or entropy_backend == "cpu":
+        stamp["cpu_capability"] = torch.backends.cpu.get_cpu_capability()
+    if dev.type == "cpu":
+        stamp["cpu_threads"] = str(torch.get_num_threads())
+    return stamp
+
+
 def to_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
     """A numpy array (copied) or tensor as ``dtype`` on ``device``."""
     if torch.is_tensor(x):

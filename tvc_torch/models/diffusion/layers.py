@@ -53,6 +53,19 @@ def init_params(module: nn.Module, generator: Optional[torch.Generator] = None) 
     return module
 
 
+def redraw_zero_scaled_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Redraw the layers that the DDPM init scales to ~0 (each attention
+    block's output NIN and the final conv) at unit scale, drawn on the host
+    from ``generator``, so that a run on random weights carries signal
+    through the attention and the output."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (NIN, DDPMConv)) and m.init_scale == 0.0:
+                w = m.W if isinstance(m, NIN) else m.weight
+                w.copy_(default_init_(torch.empty(w.shape), 1.0, generator))
+    return module
+
+
 def num_groups_for(ch: int) -> int:
     """Reference group-count rule: min(ch // 4, 32), lowered until it divides ch."""
     ng = max(min(ch // 4, 32), 1)

@@ -12,11 +12,14 @@ the port's state dict by name:
 
 The port's UNet names its parameters with the reference's ``all_modules``
 keys, so a reference ``checkpoint_*.pt`` loads with ``load_diffusion_checkpoint``
-and no conversion of layouts.
+and no conversion of layouts. The ELIC codec likewise: ``elic_from_jax`` maps
+a JAX ``ELICModel`` tree onto the reference's keys, and
+``load_codec_checkpoint`` reads a reference ``*.pth.tar``.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict
 
 import numpy as np
@@ -92,5 +95,85 @@ def load_diffusion_checkpoint(path: str, cfg: Config, use_ema: bool = True) -> D
         if k.startswith("all_modules."):
             k = "unet." + k
         if k.startswith("unet.all_modules."):
+            out[k] = v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ELIC codec
+# ---------------------------------------------------------------------------
+
+# JAX ELICModel top-level names -> the reference's state-dict prefixes
+_ELIC_TOP = [
+    (re.compile(r"(g_a|g_s|h_a|h_s)_(\d+)$"), r"\1.\2"),
+    (re.compile(r"cc_(\d+)_(\d+)$"), r"cc_transforms.\1.\2"),
+    (re.compile(r"ctx_(\d+)$"), r"context_prediction.\1"),
+    (re.compile(r"agg_(\d+)_(\d+)$"), r"ParamAggregation.\1.\2"),
+]
+# inside an attention block: conv_a_{k} -> conv_a.{k}; a residual unit's 0/2/4 -> conv.{j}
+_ELIC_INNER = [
+    (re.compile(r"(conv_[ab])_(\d+)$"), r"\1.\2"),
+    (re.compile(r"(\d+)$"), r"conv.\1"),
+]
+_EB_LEAF = re.compile(r"(matrix|bias|factor)_(\d+)$")
+_EB_LISTS = {"matrix": "_matrices", "bias": "_biases", "factor": "_factors"}
+# compressai's CDF buffers (the port rebuilds the tables from the parameters and
+# its fixed scale table), the Gaussian conditional's buffers and the context masks
+_DERIVED = re.compile(r"^gaussian_conditional\.|(^|\.)(_offset|_quantized_cdf|_cdf_length|mask)$")
+
+
+def _elic_leaves(tree: Dict[str, Any], prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    for name, v in tree.items():
+        if isinstance(v, dict):
+            key = prefix
+            if name != "conv":  # the JAX wrapper around nn.Conv
+                for pat, rep in _ELIC_INNER:
+                    if pat.fullmatch(name):
+                        name = pat.sub(rep, name)
+                        break
+                key = f"{prefix}{name}."
+            _elic_leaves(v, key, out)
+        elif name in ("kernel", "weight") and np.ndim(v) == 4:
+            # (kh, kw, I, O) conv or (kh, kw, O, I) transposed-conv kernel ->
+            # PyTorch's (O, I, kh, kw) or (I, O, kh, kw)
+            out[prefix + "weight"] = _tensor(np.asarray(v).transpose(3, 2, 0, 1).copy())
+        else:
+            out[prefix + name] = _tensor(v)
+
+
+def elic_from_jax(np_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``ELICModel`` variables (``{'params': ...}``, numpy leaves) -> the
+    port's ``ELICModel`` state dict, which uses the reference's keys. The
+    inverse of ``tvc.utils.convert.convert_elic_state_dict``."""
+    params = np_params.get("params", np_params)
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in params.items():
+        if name == "entropy_bottleneck":
+            for leaf, v in sub.items():
+                m = _EB_LEAF.fullmatch(leaf)
+                key = f"{_EB_LISTS[m.group(1)]}.{m.group(2)}" if m else leaf
+                out[f"entropy_bottleneck.{key}"] = _tensor(v)
+            continue
+        for pat, rep in _ELIC_TOP:
+            if pat.fullmatch(name):
+                _elic_leaves(sub, pat.sub(rep, name) + ".", out)
+                break
+        else:
+            raise KeyError(f"unknown ELIC parameter group {name!r}")
+    return out
+
+
+def load_codec_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference ELIC ``*.pth.tar`` (the state dict, or ``{'state_dict': ...}``)
+    from a local path -> the port's ``ELICModel`` state dict. compressai's CDF
+    buffers, the Gaussian conditional's and the context convs' masks are
+    dropped: the port rebuilds them."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    out = {}
+    for k, v in sd.items():
+        k = k[len("module."):] if k.startswith("module.") else k
+        if not _DERIVED.search(k):
             out[k] = v
     return out
