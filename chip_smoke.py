@@ -34,7 +34,28 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    function, then ``python -m tvc_torch.cli gop receive`` in a fresh process,
    whose frames must equal the sender's byte for byte. The sender must launch
    the attention kernel 1010 times per update, and take at least one accepted
-   prediction and one fallback pair.
+   prediction and one fallback pair;
+8. the same GOP through ``DeviceGOPRunner`` (state on the card, one host read
+   per update): ``d``, accepts, bits, containers and frames must be phase 7's
+   byte for byte; its per-update fetch times, synchronizing calls (CUDA sync
+   debug mode) and launches;
+9. the keyframe pair through the simulation coder (``code_frames(exact=False)``)
+   and ``ELICModel.inference``: times, and their bits against the exact coder's;
+10. the whole-GOP sender (``FusedGOPSender``): ``run`` over the 30 frames with
+    forced accepts [0, 5, 5, 5, 5, 5, 1], and ``run_batched`` on 2 chains of 12
+    frames, which must take ``run``'s decisions and bits per chain, and whose
+    rerun must be bit-identical;
+11. ``BatchedGOPRunner`` at ``batch_size=8`` on 8 jobs of 12 frames: sweeps,
+    per-sweep times, the UNet at B = 8, launches and peak memory; a rerun must
+    be bit-identical;
+12. ``python -m tvc_torch.cli sweep --device cuda --batched 4`` in a fresh
+    process on a 1-video uint8 dataset, with two codec checkpoints written here
+    from seeded weights (q0's last g_a conv scaled down so that its GOPs code
+    under 1 bpp, q1 as drawn): it must write ``points.json`` with q0's points,
+    the npy envelopes and ``config.yml``, and launch 1010 kernels per sweep.
+
+Every path above (7, 8, 10, 11, 12) must launch the attention kernel 1010 times
+per update or lockstep sweep; the ``kernels`` line sums their launches.
 
 The last lines are the ``kernels`` JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -494,7 +515,287 @@ def phase_gop(torch, attn, sender, coder, video, config_mods):
     if 0 not in gop.accepts or max(gop.accepts) == 0:
         fail(f"accepts {gop.accepts}: the GOP must take an accepted prediction and a fallback "
              f"pair; move GOP_THRESHOLD ({GOP_THRESHOLD}) between the scores above")
-    return {**row, **recv}
+    return {**row, **recv, "result": gop}
+
+
+SYNC_WARNING = "synchroniz"  # text of the CUDA sync debug mode's warnings
+
+
+def phase_device_gop(torch, attn, sender, coder, video, ref):
+    """Phase 8: phase 7's GOP through DeviceGOPRunner; ``ref`` is phase 7's GOPResult."""
+    import warnings
+
+    from tvc_torch.pipeline.sender import DeviceGOPRunner
+
+    cfg = sender.cfg
+    per_update = sender.predictor.n_steps * sum(n for *_, n in LEVELS)
+    runner = DeviceGOPRunner(cfg, sender.predictor, lpips=sender.lpips,
+                             num_frames_total=GOP_FRAMES)
+    timings, kf_syncs = {}, []
+    compress = coder.compress
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def n_syncs():
+            return sum(SYNC_WARNING in str(w.message) for w in caught)
+
+        def counted_compress(*args, **kwargs):
+            before = n_syncs()
+            out = compress(*args, **kwargs)
+            kf_syncs.append(n_syncs() - before)
+            return out
+
+        coder.compress = counted_compress
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            attn.reset_launches()  # the path starts here
+            t0 = time.perf_counter()
+            gop = runner.run(coder, video[0], cfg.seed, sender.threshold, cfg.codec.patch,
+                             timings=timings, keep_streams=True)
+            wall = time.perf_counter() - t0
+            launches = attn.launches  # read right after the path
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            del coder.compress
+        syncs = n_syncs()
+    outside = syncs - sum(kf_syncs)
+    same = {"d": gop.d.tolist() == ref.d.tolist(), "accepts": gop.accepts == ref.accepts,
+            "bits": gop.bits == ref.bits, "containers": gop.containers == ref.containers,
+            "frames": gop.x_ge.tobytes() == ref.x_ge.tobytes()}
+    u8 = np.round(video[0] * 255).astype(np.uint8)
+    dev_div = (torch.as_tensor(u8).cuda().float() / torch.full((), 255.0, device="cuda")).cpu()
+    row = {"wall_s": wall, "n_updates": gop.n_updates, "accepts": gop.accepts,
+           "cycle_fetch_s": timings["cycle_fetch"], "keyframe_s": timings["keyframes"],
+           "assemble_s": timings["assemble"], "sync_calls": syncs,
+           "sync_calls_in_keyframe_coding": sum(kf_syncs),
+           "sync_calls_outside_keyframes_per_update": outside / gop.n_updates,
+           "attention_launches": launches, "equal_to_run_gop": same,
+           "uint8_division_exact": bool(np.array_equal(dev_div.numpy(),
+                                                       u8.astype(np.float32) / 255.0))}
+    log("device_gop " + json.dumps(row))
+    if not all(same.values()):
+        fail(f"DeviceGOPRunner differs from run_gop: {same}")
+    if launches != per_update * gop.n_updates:
+        fail(f"DeviceGOPRunner launched {launches} attention kernels, not "
+             f"{per_update} x {gop.n_updates}")
+    if not row["uint8_division_exact"]:
+        fail("the card's uint8 -> [0, 1] conversion differs from numpy's")
+    return row
+
+
+def phase_sim_codec(torch, coder, video):
+    """Phase 9: the keyframe pair through the simulation coder and ELICModel.inference."""
+    from tvc_torch.pipeline.keyframe import code_frames
+
+    pair = video[0, :2]
+    xt = torch.tensor(pair, device="cuda").permute(0, 3, 1, 2).contiguous()
+
+    def inference():
+        with torch.no_grad():
+            return coder.model.inference(xt)
+
+    code_frames(coder, pair, 64, exact=False)
+    inference()
+    (x_sim, b_sim), t_sim = timed(torch, lambda: code_frames(coder, pair, 64, exact=False))
+    (x_ex, b_ex), t_ex = timed(torch, lambda: code_frames(coder, pair, 64))
+    out, t_inf = timed(torch, inference)
+    lk_bits = -sum(float(torch.log2(out["likelihoods"][k].double()).sum()) for k in ("y", "z"))
+    x_inf = torch.clamp(out["x_hat"], 0, 1).permute(0, 2, 3, 1).cpu().numpy()
+    row = {"simulation_s": t_sim, "exact_s": t_ex, "inference_s": t_inf,
+           "simulation_bits": sum(b_sim), "exact_bits": sum(b_ex), "likelihood_bits": lk_bits,
+           "simulation_over_exact_bits": sum(b_sim) / sum(b_ex),
+           "likelihood_over_rans_bits": lk_bits / sum(b_ex),
+           "max_abs_sim_minus_exact": float(np.abs(x_sim - x_ex).max()),
+           "max_abs_inference_minus_exact": float(np.abs(x_inf - x_ex).max())}
+    log("sim_codec " + json.dumps(row))
+    if not (np.isfinite(x_sim).all() and np.isfinite(x_inf).all() and np.isfinite(lk_bits)):
+        fail("the simulation coder or ELICModel.inference gave non-finite output")
+    if not 0.9 <= row["simulation_over_exact_bits"] <= 1.1:
+        fail("the simulation coder's bits are not the exact coder's")
+    return row
+
+
+FUSED_FORCED = [0, 5, 5, 5, 5, 5, 1]
+BATCH_FRAMES = 12  # depth of phases 10 (run_batched) and 11, cut from 30 for time
+
+
+def phase_fused(torch, attn, predictor, coder, lpips, video):
+    """Phase 10: the whole-GOP sender, run and run_batched."""
+    from tvc_torch.pipeline.fused_gop import FusedGOPSender
+
+    cfg = predictor.cfg
+    per_update = predictor.n_steps * sum(n for *_, n in LEVELS)
+    fused = FusedGOPSender(cfg, predictor, coder, lpips, num_frames_total=GOP_FRAMES)
+    attn.reset_launches()  # the path starts here
+    out, wall = timed(torch, lambda: fused.run(video[0], cfg.seed, GOP_THRESHOLD,
+                                               forced_accepts=FUSED_FORCED))
+    launches = attn.launches
+    n = int(out["n_updates"])
+    row = {"run_wall_s": wall, "n_updates": n, "accepts": out["accepts"][:n].tolist(),
+           "d": out["d"].tolist(), "bits": float(out["bits"]),
+           "bpp": float(out["bits"]) / (GOP_FRAMES * 128 * 128), "attention_launches": launches}
+    if (row["accepts"] != [0, 5, 5, 5, 5, 5, 1] or row["d"] != [1] * 4 + [0] * 26
+            or launches != per_update * n or not torch.isfinite(out["x_ge"]).all()):
+        fail(f"FusedGOPSender.run: {row}")
+
+    short = FusedGOPSender(cfg, predictor, coder, lpips, num_frames_total=BATCH_FRAMES)
+    videos = np.stack([video[0, :BATCH_FRAMES],
+                       synthetic_video(n=BATCH_FRAMES, seed=11)[0]])
+    seeds, thr = [cfg.seed, cfg.seed + 1], [GOP_THRESHOLD, GOP_THRESHOLD]
+    forced = np.asarray([[0, 5, 3], [5, 0, 3]])
+    attn.reset_launches()
+    batched, wall_b = timed(torch, lambda: short.run_batched(videos, seeds, thr, forced))
+    launches_b = attn.launches
+    again = short.run_batched(videos, seeds, thr, forced)
+    rerun_same = all(torch.equal(batched[k], again[k]) for k in batched)
+    per_chain = []
+    for i in range(2):
+        one = short.run(videos[i], seeds[i], thr[i], forced_accepts=forced[i])
+        per_chain.append({
+            "accepts": one["accepts"].tolist() == batched["accepts"][i].tolist(),
+            "d": one["d"].tolist() == batched["d"][i].tolist(),
+            "bits_equal": float(one["bits"]) == float(batched["bits"][i]),
+            "max_abs_frames": float((one["x_ge"] - batched["x_ge"][i]).abs().max())})
+    lockstep = int(batched["n_updates"].max())
+    row.update({"batched_wall_s": wall_b, "batched_lockstep_updates": lockstep,
+                "batched_attention_launches": launches_b, "batched_rerun_identical": rerun_same,
+                "batched_vs_run": per_chain})
+    log("fused_gop " + json.dumps(row))
+    if not rerun_same:
+        fail("FusedGOPSender.run_batched's rerun is not bit-identical")
+    if not all(c["accepts"] and c["d"] and c["bits_equal"] and c["max_abs_frames"] <= FUSED_TOL
+               for c in per_chain):
+        fail(f"run_batched differs from run per chain: {per_chain}")
+    if launches_b != per_update * lockstep:
+        fail(f"run_batched launched {launches_b}, not {per_update} x {lockstep}")
+    return row
+
+
+# run_batched's frames against run's: the UNet's kernels differ between B = 2 and B = 1
+FUSED_TOL = 1e-2
+
+
+def phase_batched(torch, attn, predictor, coder, lpips):
+    """Phase 11: BatchedGOPRunner at batch_size 8 on 8 jobs, and its rerun."""
+    from tvc_torch.core.runtime import batched_conv_algorithms
+    from tvc_torch.pipeline.batched import BatchedGOPRunner, GOPJob
+
+    cfg = predictor.cfg
+    per_update = predictor.n_steps * sum(n for *_, n in LEVELS)
+    videos = [synthetic_video(n=BATCH_FRAMES, seed=20 + i)[0] for i in range(8)]
+    thresholds = [1e9, GOP_THRESHOLD, 0.13, -1.0] * 2
+    walks = [[GOPJob(video=v, threshold=t, quality=0, num_frames_total=BATCH_FRAMES)]
+             for v, t in zip(videos, thresholds)]
+    runner = BatchedGOPRunner(cfg, predictor, {0: coder}, lpips=lpips, batch_size=8)
+    generate, sweep_s = predictor.generate, []
+
+    def timed_generate(*args, **kwargs):
+        out, s = timed(torch, lambda: generate(*args, **kwargs))
+        sweep_s.append(s)
+        return out
+
+    predictor.generate = timed_generate
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        attn.reset_launches()  # the path starts here
+        (results, stats), wall = timed(torch, lambda: runner.run_walks(walks, cfg.seed,
+                                                                       cfg.codec.patch))
+        launches = attn.launches
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        again, stats2 = runner.run_walks(walks, cfg.seed, cfg.codec.patch)
+    finally:
+        predictor.generate = generate
+    same = stats == stats2 and all(
+        a[0].x_ge.tobytes() == b[0].x_ge.tobytes() and a[0].bits == b[0].bits
+        and a[0].d.tolist() == b[0].d.tolist() for a, b in zip(results, again))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    size, c = cfg.data.image_size, cfg.data.channels
+    x = torch.randn((8, size, size, c * cfg.data.num_frames), generator=g, device="cuda")
+    cond = torch.rand((8, size, size, c * cfg.data.num_frames_cond), generator=g, device="cuda")
+    t = torch.full((8,), 500, device="cuda")
+    with torch.no_grad(), batched_conv_algorithms(8, "cuda"):  # as generate runs it
+        unet8 = time_ms(torch, lambda: predictor.model(x, t, cond), 5)
+    row = {"wall_s": wall, **stats, "sweep_generate_s": sweep_s[: stats["sweeps"]],
+           "wall_per_sweep_s": wall / stats["sweeps"], "unet_ms_b8": unet8,
+           "unet_ms_b8_per_chain": unet8 / 8, "attention_launches": launches,
+           "peak_mem_gb": peak, "n_updates": [w[0].n_updates for w in results],
+           "bpp": [w[0].bpp for w in results], "rerun_identical": same}
+    log("batched_gop " + json.dumps(row))
+    if not same:
+        fail("BatchedGOPRunner's rerun is not bit-identical")
+    if launches != per_update * stats["sweeps"]:
+        fail(f"BatchedGOPRunner launched {launches}, not {per_update} x {stats['sweeps']}")
+    if any(w[0].x_ge.shape != (1, BATCH_FRAMES, 128, 128, 3) or not np.isfinite(w[0].x_ge).all()
+           for w in results):
+        fail("BatchedGOPRunner's frames are not 12 finite frames")
+    return row
+
+
+Q0_SCALE = 1e-5  # q0's last g_a conv: latents round to zero, so a GOP codes under 1 bpp
+SWEEP_THRESHOLDS = ("1e9", str(GOP_THRESHOLD))
+
+
+def phase_cli_sweep(torch, video, config_mods):
+    """Phase 12: ``python -m tvc_torch.cli sweep`` in a fresh process."""
+    import yaml
+
+    from tvc_torch.core.config import CodecConfig
+    from tvc_torch.models.codec.elic import make_elic
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpts = []
+        for q in (0, 1):  # the weights the CLI would draw for quality q, q0 scaled
+            model = make_elic(CodecConfig(), seed=q, device="cpu")
+            if q == 0:
+                with torch.no_grad():
+                    model.g_a[13].weight.mul_(Q0_SCALE)
+            ckpts.append(os.path.join(tmp, f"q{q}.pth.tar"))
+            torch.save({"state_dict": model.state_dict()}, ckpts[-1])
+        data = os.path.join(tmp, "data.npy")
+        frames = np.round(video[0, :BATCH_FRAMES] * 255).astype(np.uint8)
+        np.save(data, frames.transpose(0, 3, 1, 2)[None])
+        out = os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tvc_torch.cli", "sweep", "--data-npy", data,
+             "--output-path", out, "--device", "cuda", "--no-fvd", "--allow-uncalibrated",
+             "--batched", "4", "--qualities", "0", "1", "--thresholds", *SWEEP_THRESHOLDS,
+             "--codec-ckpts", *ckpts, "--config-mod", *config_mods],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        for line in (proc.stdout + proc.stderr).strip().splitlines():
+            log("  sweep| " + line)
+        if proc.returncode != 0:
+            fail(f"the sweep process exited {proc.returncode}")
+        m = re.search(r"\[batched\] (\d+) sampler sweeps for (\d+) rate points \((\d+) retired",
+                      proc.stdout)
+        ml = re.search(r"attention kernel launches: (\d+)", proc.stdout)
+        root = os.path.join(out, "output_0")
+        files = sorted(os.listdir(root)) if os.path.isdir(root) else []
+        points = []
+        if "points.json" in files:
+            with open(os.path.join(root, "points.json")) as f:
+                points = json.load(f)
+        with open(os.path.join(out, "config.yml")) as f:
+            provenance = yaml.safe_load(f).get("provenance")
+    sweeps = int(m.group(1)) if m else -1
+    launches = int(ml.group(1)) if ml else -1
+    row = {"process_wall_s": wall, "sweeps": sweeps, "jobs_run": int(m.group(2)) if m else None,
+           "jobs_skipped": int(m.group(3)) if m else None, "attention_launches": launches,
+           "files": files, "provenance": provenance,
+           "points": [{k: p[k] for k in ("quality", "threshold", "bpp", "d")} for p in points]}
+    log("cli_sweep " + json.dumps(row))
+    per_update = 101 * sum(n for *_, n in LEVELS)
+    if not points or any(p["quality"] != 0 or not p["bpp"] < 1.0 for p in points):
+        fail("the sweep wrote no q0 point under 1 bpp, or a q1 point")
+    if not {"points.json", "psnr_0.npy", "lpips_0.npy", "fvd_0.npy"} <= set(files):
+        fail(f"the sweep's RD files are missing: {files}")
+    if not provenance or provenance.get("calibrated") is not False:
+        fail(f"config.yml's provenance is {provenance}")
+    if sweeps <= 0 or launches != per_update * sweeps:
+        fail(f"the sweep launched {launches} attention kernels for {sweeps} sweeps")
+    return row
 
 
 def main() -> None:
@@ -557,9 +858,22 @@ def main() -> None:
     log(f"gop threshold {GOP_THRESHOLD}: {GOP_THRESHOLD_REASON}")
     gop = phase_gop(torch, attn, Sender(GOP_THRESHOLD, cfg, predictor, lpips), coder, video,
                     ["codec.entropy_backend=device"])
-    main_launches = gop["attention_launches"]
-    if main_launches == 0:
-        fail("the main path launched no attention kernel")
+    device_gop = phase_device_gop(torch, attn, Sender(GOP_THRESHOLD, cfg, predictor, lpips),
+                                  coder, video, gop["result"])
+    sim = phase_sim_codec(torch, coder, video)
+    fused = phase_fused(torch, attn, predictor, coder, lpips, video)
+    batched = phase_batched(torch, attn, predictor, coder, lpips)
+    sweep = phase_cli_sweep(torch, video, ["codec.entropy_backend=device"])
+    path_launches = {"run_gop": gop["attention_launches"],
+                     "device_gop": device_gop["attention_launches"],
+                     "fused_run": fused["attention_launches"],
+                     "fused_run_batched": fused["batched_attention_launches"],
+                     "batched_gop": batched["attention_launches"],
+                     "cli_sweep": sweep["attention_launches"]}
+    log("launches " + json.dumps(path_launches))
+    main_launches = sum(path_launches.values())
+    if min(path_launches.values()) <= 0:
+        fail("a path launched no attention kernel")
 
     main_rows = [r for r in rows if r["B"] == 1 and r["dtype"] == "float32"]
     per_call = {r["level"]: r["per_unet_call"] for r in main_rows}
@@ -585,7 +899,14 @@ def main() -> None:
         "codec_decode_s": {b: codec[b]["decode_s"] for b in ("device", "cpu")},
         "gop_sender_wall_s": gop["sender_wall_s"], "gop_receiver_wall_s": gop["receiver_wall_s"],
         "gop_receiver_run_s": gop["receiver_run_s"], "gop_n_updates": gop["n_updates"],
-        "gop_bpp": gop["bpp"], "gop_peak_mem_gb": gop["peak_mem_gb"], "numerics": numerics(),
+        "gop_bpp": gop["bpp"], "gop_peak_mem_gb": gop["peak_mem_gb"],
+        "device_gop_wall_s": device_gop["wall_s"],
+        "device_gop_syncs_per_update": device_gop["sync_calls_outside_keyframes_per_update"],
+        "sim_pair_s": sim["simulation_s"], "inference_pair_s": sim["inference_s"],
+        "fused_run_wall_s": fused["run_wall_s"], "fused_batched_wall_s": fused["batched_wall_s"],
+        "batched_wall_s": batched["wall_s"], "batched_sweeps": batched["sweeps"],
+        "unet_ms_b1": unet["unet_ms"], "unet_ms_b8": batched["unet_ms_b8"],
+        "cli_sweep_wall_s": sweep["process_wall_s"], "numerics": numerics(),
         "total_s": time.perf_counter() - t_start}))
     kernels = [{
         "name": "attention",

@@ -188,11 +188,19 @@ def test_gop_trims_to_num_frames_and_seeds_per_update(pipelines):
 
 
 def test_run_gop_refuses_the_simulation_path(pipelines):
+    """The simulation coder's streams are not transmissible: with
+    keep_streams run_gop refuses it; without, it codes the same bits."""
     cfg, pred, coder, lp = pipelines[0]
     sim = tiny_cfg(Config)
     sim.codec.exact_streams = False
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_gop(Sender(-1.0, sim, pred, lp), coder, smooth_video(), seed=1, num_frames_total=4)
+    with pytest.raises(ValueError, match="exact_streams"):
+        run_gop(Sender(-1.0, sim, pred, lp), coder, smooth_video(), seed=1, num_frames_total=4,
+                keep_streams=True)
+    got = run_gop(Sender(-1.0, sim, pred, lp), coder, smooth_video(), seed=1, num_frames_total=4)
+    want = run_gop(Sender(-1.0, cfg, pred, lp), coder, smooth_video(), seed=1, num_frames_total=4)
+    assert got.containers is None and got.d.tolist() == want.d.tolist()
+    assert got.bits == want.bits
+    np.testing.assert_allclose(got.x_ge, want.x_ge, atol=1e-2)
 
 
 def test_receiver_refuses_a_short_payload(pipelines):

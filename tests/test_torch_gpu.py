@@ -240,20 +240,13 @@ def test_device_entropy_parameters_match_cpu(full_codec):
     print(f"{differ} of {2 * len(pairs)} parameter maps differ between the backends")
 
 
-def test_small_gop_receiver_rebuilds_the_sender_on_card():
-    """A narrow pipeline on the card: the receiver's frames are the sender's,
-    byte for byte, through accepted predictions and fallback pairs."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    import numpy as np
-
+def _narrow_pipeline():
+    """A narrow UNet, ELIC and random LPIPS on the card."""
     from tvc_torch.core.config import CodecConfig
     from tvc_torch.metrics.lpips import LPIPSMetric
     from tvc_torch.models.codec.coding import ELICCoder
     from tvc_torch.models.codec.elic import make_elic
     from tvc_torch.pipeline.predictor import FramePredictor
-    from tvc_torch.pipeline.receiver import run_gop_receiver
-    from tvc_torch.pipeline.sender import Sender, run_gop
 
     cfg = Config()
     cfg.data.image_size = 64
@@ -268,10 +261,54 @@ def test_small_gop_receiver_rebuilds_the_sender_on_card():
     pred = FramePredictor.create(cfg, seed=0, device="cuda")
     coder = ELICCoder(make_elic(CodecConfig(N=16, M=24, groups=(4, 4, 4, 4, 8)), device="cuda"),
                       "device")
-    lp = LPIPSMetric.create(seed=0, device="cuda")
+    return cfg, pred, coder, LPIPSMetric.create(seed=0, device="cuda")
+
+
+def test_small_gop_receiver_rebuilds_the_sender_on_card(cuda):
+    """A narrow pipeline on the card: the receiver's frames are the sender's,
+    byte for byte, through accepted predictions and fallback pairs."""
+    import numpy as np
+
+    from tvc_torch.pipeline.receiver import run_gop_receiver
+    from tvc_torch.pipeline.sender import Sender, run_gop
+
+    cfg, pred, coder, lp = _narrow_pipeline()
     video = np.random.RandomState(3).rand(10, 64, 64, 3).astype(np.float32)
     for threshold in (1e9, -1.0):
         gop = run_gop(Sender(threshold, cfg, pred, lp), coder, video, seed=4, num_frames_total=10,
                       keep_streams=True)
         rec = run_gop_receiver(cfg, gop.accepts, gop.containers, coder, pred, 4, 10)
         assert rec.tobytes() == gop.x_ge[0].tobytes()
+
+
+def test_device_runner_is_run_gop_on_card(cuda):
+    """DeviceGOPRunner on the card, uint8 input converted there: run_gop's
+    decisions, bits, containers and frames, byte for byte."""
+    import numpy as np
+
+    from tvc_torch.pipeline.sender import DeviceGOPRunner, Sender, run_gop
+
+    cfg, pred, coder, lp = _narrow_pipeline()
+    video = np.round(np.random.RandomState(5).rand(10, 64, 64, 3) * 255).astype(np.uint8)
+    for threshold in (1e9, -1.0):
+        want = run_gop(Sender(threshold, cfg, pred, lp), coder, video.astype(np.float32) / 255.0,
+                       seed=6, num_frames_total=10, keep_streams=True)
+        got = DeviceGOPRunner(cfg, pred, lpips=lp, num_frames_total=10).run(
+            coder, video, 6, threshold, keep_streams=True)
+        assert got.accepts == want.accepts and got.bits == want.bits
+        assert got.containers == want.containers
+        assert got.x_ge.tobytes() == want.x_ge.tobytes()
+
+
+def test_batched_prediction_reruns_bit_identical(cuda):
+    """Predictions at B > 1 (cuDNN's timed algorithm choice) repeat bit for
+    bit in a process; a B = 1 prediction is unchanged by them."""
+    cfg, pred, _, _ = _narrow_pipeline()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cond = torch.rand((4, 64, 64, 6), generator=g, device="cuda")
+    one = pred.generate(cond[:1], generator=torch.Generator(device="cuda").manual_seed(1))
+    outs = [pred.generate(cond, generator=torch.Generator(device="cuda").manual_seed(2))
+            for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+    again = pred.generate(cond[:1], generator=torch.Generator(device="cuda").manual_seed(1))
+    assert torch.equal(one, again)

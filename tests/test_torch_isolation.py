@@ -63,7 +63,7 @@ def test_sources_name_no_jax(path):
 
 
 @pytest.mark.parametrize("entry", ["unet", "predictor", "lpips", "coder", "cli_codec",
-                                   "cli_gop_send", "cli_gop_receive"])
+                                   "cli_gop_send", "cli_gop_receive", "cli_sweep"])
 def test_default_device_raises_without_a_card(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a card; the default device is valid here")
@@ -83,7 +83,10 @@ def test_default_device_raises_without_a_card(entry, tmp_path):
                       "cli_gop_send": ["gop", "send", "--video-npy", str(frames), "--payload",
                                        str(tmp_path / "p.tvcg"), "--allow-uncalibrated"],
                       "cli_gop_receive": ["gop", "receive", "--payload",
-                                          str(tmp_path / "p.tvcg")]}[entry])
+                                          str(tmp_path / "p.tvcg")],
+                      "cli_sweep": ["sweep", "--data-npy", str(frames), "--output-path",
+                                    str(tmp_path / "out"), "--no-fvd",
+                                    "--allow-uncalibrated"]}[entry])
 
 
 _RANS_PROBE = """

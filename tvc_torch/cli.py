@@ -1,11 +1,15 @@
-"""tvc_torch command-line interface (counterpart of ``tvc/cli.py``'s ``codec`` and ``gop``).
+"""tvc_torch command-line interface (counterpart of ``tvc/cli.py``'s ``sweep``,
+``codec`` and ``gop``).
 
+    python -m tvc_torch.cli sweep --data-npy data.npy --output-path out --no-fvd \
+        --qualities 4 5 --batched 8                 # rate sweep: points, envelopes, plots
     python -m tvc_torch.cli codec --input-npy frames.npy --save-bitstream x.tvc \
         --output-npy sender.npy                      # encode, write a TVC2 container
     python -m tvc_torch.cli codec --from-bitstream x.tvc --input-npy frames.npy \
         --output-npy receiver.npy                    # decode it (input: size, PSNR)
+    python -m tvc_torch.cli codec --entropy-estimation --input-npy frames.npy
     python -m tvc_torch.cli gop send --video-npy video.npy --payload gop.tvcg \
-        --threshold 0.1 --allow-uncalibrated --output-npy sender.npy
+        --threshold 0.1 --allow-uncalibrated --output-npy sender.npy [--device-gop]
     python -m tvc_torch.cli gop receive --payload gop.tvcg --output-npy receiver.npy
 
 Every command runs on ``--device`` (``cuda`` by default; ``cpu`` on a host
@@ -57,8 +61,9 @@ def load_frames(path: str) -> np.ndarray:
     return x
 
 
-def build_coder(cfg, device, ckpt: Optional[str] = None):
-    """The ELIC coder of ``cfg.codec``: a checkpoint's weights, or seeded random ones."""
+def build_coder(cfg, device, ckpt: Optional[str] = None, seed: int = 0):
+    """The ELIC coder of ``cfg.codec``: a checkpoint's weights, or random ones
+    drawn from ``seed``."""
     from tvc_torch.core.runtime import resolve_device
     from tvc_torch.models.codec.coding import ELICCoder
     from tvc_torch.models.codec.elic import ELICModel, make_elic
@@ -69,8 +74,8 @@ def build_coder(cfg, device, ckpt: Optional[str] = None):
         model.load_state_dict(load_codec_checkpoint(ckpt), strict=True)
         model = model.to(resolve_device(device))
     else:
-        print("[tvc_torch] WARNING: random codec weights", flush=True)
-        model = make_elic(cfg.codec, seed=0, device=device)
+        print(f"[tvc_torch] WARNING: random codec weights (seed {seed})", flush=True)
+        model = make_elic(cfg.codec, seed=seed, device=device)
     return ELICCoder(model, entropy_backend=cfg.codec.entropy_backend)
 
 
@@ -133,26 +138,37 @@ def cmd_codec(argv: List[str]) -> int:
     ap.add_argument("--ckpt", type=str, default=None, help="ELIC checkpoint .pth.tar")
     ap.add_argument("--output-npy", type=str, default=None)
     ap.add_argument("--entropy-estimation", action="store_true",
-                    help="likelihood-based bpp, no bitstreams (not ported)")
+                    help="likelihood-based bpp from ELICModel.inference, no bitstreams")
     ap.add_argument("--save-bitstream", type=str, default=None,
                     help="write the coded frames to a TVC2 container")
     ap.add_argument("--from-bitstream", type=str, default=None,
                     help="receiver mode: decode a TVC1/TVC2 container")
     args = ap.parse_args(argv)
-    if args.entropy_estimation:
-        raise NotImplementedError("codec --entropy-estimation is not ported yet (ROADMAP.md)")
     if args.input_npy is None and args.from_bitstream is None:
         ap.error("--input-npy is needed to encode")
 
     from tvc_torch.metrics.pixel import psnr
     from tvc_torch.models.codec import container
-    from tvc_torch.pipeline.keyframe import code_frames_enc
+    from tvc_torch.pipeline.keyframe import code_frames_enc, pad_to_multiple
 
     cfg = _load_cfg(args)
     x = load_frames(args.input_npy) if args.input_npy else None
     coder = build_coder(cfg, args.device, args.ckpt)
     t0 = time.perf_counter()
-    if args.from_bitstream:
+    if args.entropy_estimation:
+        if x is None:
+            ap.error("--entropy-estimation needs --input-npy")
+        xp, (pb, pr) = pad_to_multiple(x, cfg.codec.patch)
+        with torch.no_grad():
+            xt = torch.tensor(xp, device=coder.device).permute(0, 3, 1, 2).contiguous()
+            out = coder.model.inference(xt)
+            bits = -float(torch.log2(out["likelihoods"]["y"]).sum()
+                          + torch.log2(out["likelihoods"]["z"]).sum())
+            x_hat = torch.clamp(out["x_hat"], 0, 1).permute(0, 2, 3, 1).cpu().numpy()
+        x_hat = x_hat[:, : xp.shape[1] - pb, : xp.shape[2] - pr]
+        msg = (f"[entropy-estimation] frames={x.shape[0]} bpp={bits / x[..., 0].size:.4f} "
+               f"psnr={np.mean([psnr(a, b) for a, b in zip(x, x_hat)]):.2f}dB")
+    elif args.from_bitstream:
         enc = container.load(args.from_bitstream,
                              expect_entropy_backend=cfg.codec.entropy_backend)
         x_hat = coder.decompress(enc["strings"], enc["shape"])["x_hat"]
@@ -194,13 +210,11 @@ def cmd_gop(argv: List[str]) -> int:
     ap.add_argument("--output-npy", type=str, default=None,
                     help="write the sender's or the receiver's frames")
     ap.add_argument("--device-gop", action="store_true",
-                    help="send through the device-resident GOP loop (not ported)")
+                    help="send: code through DeviceGOPRunner (state on the device, one host "
+                         "read per update); the same payload, byte for byte")
     ap.add_argument("--allow-uncalibrated", action="store_true",
                     help="send: allow accept decisions on random LPIPS weights")
     args = ap.parse_args(argv)
-    if args.device_gop:
-        raise NotImplementedError("gop send --device-gop (DeviceGOPRunner) is not ported yet "
-                                  "(ROADMAP.md)")
 
     from tvc_torch.core.runtime import numerics_stamp
 
@@ -208,7 +222,7 @@ def cmd_gop(argv: List[str]) -> int:
     stamp = numerics_stamp(args.device, cfg.codec.entropy_backend)
     if args.mode == "send":
         from tvc_torch.metrics.lpips import LPIPSMetric
-        from tvc_torch.pipeline.sender import Sender, run_gop
+        from tvc_torch.pipeline.sender import DeviceGOPRunner, Sender, run_gop
 
         if args.video_npy is None:
             ap.error("gop send needs --video-npy")
@@ -221,9 +235,16 @@ def cmd_gop(argv: List[str]) -> int:
         video = load_frames(args.video_npy)
         coder = build_coder(cfg, args.device, args.codec_ckpt)
         predictor = build_predictor(cfg, args.device, args.ckpt)
-        sender = Sender(args.threshold, cfg, predictor, lp, use_psnr=args.decision == "psnr")
-        gop = run_gop(sender, coder, video, cfg.seed, min(args.num_frames, video.shape[0]),
-                      cfg.codec.patch, keep_streams=True)
+        use_psnr = args.decision == "psnr"
+        T = min(args.num_frames, video.shape[0])
+        if args.device_gop:
+            runner = DeviceGOPRunner(cfg, predictor, lpips=lp, use_psnr=use_psnr,
+                                     num_frames_total=T)
+            gop = runner.run(coder, video, cfg.seed, args.threshold, patch=cfg.codec.patch,
+                             keep_streams=True)
+        else:
+            sender = Sender(args.threshold, cfg, predictor, lp, use_psnr=use_psnr)
+            gop = run_gop(sender, coder, video, cfg.seed, T, cfg.codec.patch, keep_streams=True)
         nbytes = write_payload(args.payload, gop, cfg.seed, lp.calibrated, stamp)
         print(f"[gop send] T={gop.x_ge.shape[1]} bits={gop.bits} bpp={gop.bpp:.6f} "
               f"d={[int(v) for v in gop.d[0]]} accepts={gop.accepts} "
@@ -252,9 +273,114 @@ def cmd_gop(argv: List[str]) -> int:
     return 0
 
 
+def cmd_sweep(argv: List[str]) -> int:
+    """The rate sweep over a dataset: (quality x threshold) points per video,
+    convex-hulled RD envelopes, ``points.json``, npy files, plots, and the
+    run's ``config.yml`` with its provenance."""
+    ap = argparse.ArgumentParser(prog="tvc_torch sweep")
+    _add_common_args(ap)
+    ap.add_argument("--data-npy", required=True, help="(B,T,C,H,W) dataset npy in [0, 255]")
+    ap.add_argument("--output-path", required=True)
+    ap.add_argument("--start-idx", type=int, default=0)
+    ap.add_argument("--end-idx", type=int, default=0)
+    ap.add_argument("--ckpt", type=str, default=None, help="diffusion checkpoint .pt")
+    ap.add_argument("--codec-ckpts", nargs="*", default=None,
+                    help="ELIC checkpoints q0..q5 (.pth.tar), indexed by quality")
+    ap.add_argument("--qualities", nargs="*", type=int, default=[4, 5])
+    ap.add_argument("--thresholds", nargs="*", type=float, default=None,
+                    help="decision-threshold walk (default: 0.30..0.03 step -0.01)")
+    ap.add_argument("--decision", choices=["lpips", "psnr"], default="lpips",
+                    help="accept rule: LPIPS <= rho or PSNR >= rho in dB (give matching "
+                         "--thresholds for psnr, e.g. 30 28 26)")
+    ap.add_argument("--no-fvd", action="store_true",
+                    help="no FVD (required: FVD is not ported, ROADMAP.md A11)")
+    ap.add_argument("--i3d-ckpt", type=str, default=None)
+    ap.add_argument("--lpips-alex", type=str, default=None, help="torchvision alexnet .pth")
+    ap.add_argument("--lpips-lin", type=str, default=None, help="lpips linear heads .pth")
+    ap.add_argument("--bench-264", type=str, default=None)
+    ap.add_argument("--bench-265", type=str, default=None)
+    ap.add_argument("--sim-codec", action="store_true",
+                    help="code keyframes with the simulation coder (one batched pass on the "
+                         "card; streams not transmissible); default: the exact coder")
+    ap.add_argument("--batched", type=int, default=0,
+                    help="run every (video, q, rho) job as lockstep-batched GOP chains of this "
+                         "batch size (0: one GOP at a time)")
+    ap.add_argument("--device-gop", action="store_true",
+                    help="one GOP at a time through DeviceGOPRunner (not with --batched)")
+    ap.add_argument("--fused-gop", action="store_true",
+                    help="one GOP at a time through the whole-GOP sender: likelihood bits, "
+                         "not rANS byte counts (not with --batched or --queue-dir)")
+    ap.add_argument("--num-processes", type=int, default=1,
+                    help="processes sharing the walks (--batched)")
+    ap.add_argument("--process-id", type=int, default=0)
+    ap.add_argument("--queue-dir", type=str, default=None,
+                    help="work-queue scheduling (not ported, ROADMAP.md A10)")
+    ap.add_argument("--queue-stale-after", type=float, default=900.0)
+    ap.add_argument("--allow-uncalibrated", action="store_true",
+                    help="run on random LPIPS weights; RD curves are then meaningless, and "
+                         "config.yml says provenance.calibrated=false")
+    args = ap.parse_args(argv)
+
+    if args.fused_gop and (args.batched or args.queue_dir):
+        print("[tvc_torch] --fused-gop is sequential-mode only and uses the device codec; "
+              "drop --batched/--queue-dir")
+        return 2
+    if args.device_gop and args.batched:
+        print("[tvc_torch] --device-gop runs GOP chains one at a time; drop --batched")
+        return 2
+    if not args.no_fvd:
+        print("[tvc_torch] ERROR: FVD is not ported (I3D, ROADMAP.md A11); pass --no-fvd",
+              file=sys.stderr)
+        return 2
+    if args.queue_dir:
+        print("[tvc_torch] ERROR: --queue-dir needs the work queue, not ported (ROADMAP.md "
+              "A10); use --num-processes/--process-id with --batched", file=sys.stderr)
+        return 2
+
+    from tvc_torch.metrics.lpips import LPIPSMetric
+    from tvc_torch.pipeline.driver import load_dataset, run_sweep, run_sweep_batched
+
+    cfg = _load_cfg(args)
+    if args.sim_codec:
+        cfg.codec.exact_streams = False
+        print("[tvc_torch] codec path: the simulation coder (--sim-codec); its streams are not "
+              "receiver-decodable")
+    lp = LPIPSMetric.create(args.lpips_alex, args.lpips_lin, device=args.device)
+    if not lp.calibrated:
+        if not args.allow_uncalibrated:
+            print("[tvc_torch] ERROR: missing metric weights: LPIPS (--lpips-alex/--lpips-lin); "
+                  "accept decisions would use random features. Pass --allow-uncalibrated to "
+                  "run anyway (stamped into provenance).", file=sys.stderr)
+            return 2
+        print("[tvc_torch] WARNING: running UNCALIBRATED (LPIPS); RD outputs are not "
+              "meaningful", flush=True)
+    provenance = {"calibrated": lp.calibrated, "lpips_calibrated": lp.calibrated,
+                  "fvd_calibrated": True}  # --no-fvd: FVD is not used
+
+    data = load_dataset(args.data_npy)
+    coders = {q: build_coder(cfg, args.device, args.codec_ckpts[q] if args.codec_ckpts else None,
+                             seed=q) for q in args.qualities}
+    predictor = build_predictor(cfg, args.device, args.ckpt)
+    common = dict(start_idx=args.start_idx, end_idx=args.end_idx, qualities=args.qualities,
+                  thresholds=args.thresholds, lpips_metric=lp, provenance=provenance,
+                  use_psnr=args.decision == "psnr")
+    if args.batched > 0:
+        run_sweep_batched(cfg, data, coders, predictor, args.output_path,
+                          batch_size=args.batched, num_processes=args.num_processes,
+                          process_id=args.process_id, **common)
+    else:
+        run_sweep(cfg, data, coders, predictor, args.output_path, bench_264=args.bench_264,
+                  bench_265=args.bench_265, fused_gop=args.fused_gop,
+                  device_gop=args.device_gop, **common)
+    from tvc_torch.ops import attention
+
+    print(f"[sweep] attention kernel launches: {attention.launches}", flush=True)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    cmds = {"codec": cmd_codec, "gop": cmd_gop}
+    cmds = {"sweep": cmd_sweep, "codec": cmd_codec, "gop": cmd_gop}
     if not argv or argv[0] not in cmds:
         print(f"usage: python -m tvc_torch.cli {{{','.join(cmds)}}} ...")
         return 0 if argv and argv[0] in ("-h", "--help") else 1

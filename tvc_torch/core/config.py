@@ -230,3 +230,14 @@ def apply_overrides(cfg: Config, overrides: Sequence[str]) -> Config:
 
 def config_to_dict(cfg: Config) -> dict:
     return dataclasses.asdict(cfg)
+
+
+def save_config(cfg: Config, path: str, extra: Optional[dict] = None) -> None:
+    """Write the run's config as YAML; ``extra`` adds top-level keys, such as
+    ``{"provenance": {"calibrated": False, ...}}`` for a sweep run on
+    uncalibrated metric weights."""
+    d = config_to_dict(cfg)
+    if extra:
+        d.update(extra)
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f, default_flow_style=False)

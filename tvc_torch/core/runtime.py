@@ -12,6 +12,7 @@ bit-identical.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import numpy as np
@@ -62,6 +63,29 @@ def numerics_stamp(device, entropy_backend: str) -> Dict[str, str]:
     if dev.type == "cpu":
         stamp["cpu_threads"] = str(torch.get_num_threads())
     return stamp
+
+
+@contextlib.contextmanager
+def batched_conv_algorithms(batch: int, device):
+    """Let cuDNN time its deterministic algorithms, float32 without TF32, for
+    a batch of more than one on the card; a batch of one keeps its heuristic
+    choice.
+
+    On the H100 the heuristic picks an FFT algorithm for some of the UNet's
+    convolutions at B = 2 and 4 that makes a call 4.1-4.8 s long against
+    67-75 ms after timing (``python -m tvc_torch.tools.conv_algorithms``).
+    Only the in-process batched paths (the lockstep runner, the whole-GOP
+    sender's ``run_batched``) predict at B > 1, and no receiver repeats their
+    frames. cuDNN caches its choice per shape
+    for the process, so a rerun is bit-identical; another process may choose
+    another algorithm where two are about as fast. B = 1, which a receiver
+    repeats, is untouched: the choice is keyed by the batch size."""
+    if batch == 1 or torch.device(device).type != "cuda":
+        yield
+        return
+    with torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=True,
+                                    allow_tf32=False):
+        yield
 
 
 def to_tensor(x, device, dtype=torch.float32) -> torch.Tensor:

@@ -5,7 +5,8 @@ compressai's ``EntropyBottleneck`` as
 - ``FactorizedEntropy``, an ``nn.Module`` holding the learnable univariate
   CDF network (the matrices/biases/factors cascade of Balle et al. 2018,
   appendix 6.1) and the quantiles, under compressai's parameter names
-  (``_matrices.{k}``, ``_biases.{k}``, ``_factors.{k}``, ``quantiles``);
+  (``_matrices.{k}``, ``_biases.{k}``, ``_factors.{k}``, ``quantiles``), whose
+  forward gives the likelihoods of the quantized latents;
 - ``FactorizedCoder``, which freezes quantized CDF tables from the same
   parameters in float64 numpy on the host and drives the rANS coder.
 
@@ -20,10 +21,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tvc_torch.entropy.cdf import build_cdf_table
 from tvc_torch.entropy.rans import RansDecoder, RansEncoder
+from tvc_torch.ops.quantize import quantize
+
+LIKELIHOOD_BOUND = 1e-9
 
 
 class FactorizedEntropy(nn.Module):
@@ -66,6 +71,37 @@ class FactorizedEntropy(nn.Module):
 
     def medians(self) -> torch.Tensor:
         return self.quantiles[:, 0, 1].detach()
+
+    def _logits_cumulative(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (C, 1, N) -> logits of the CDF network, (C, 1, N)."""
+        logits = x
+        for i, m in enumerate(self._matrices):
+            logits = torch.matmul(F.softplus(m), logits) + self._biases[i]
+            if i < len(self._factors):
+                logits = logits + torch.tanh(self._factors[i]) * torch.tanh(logits)
+        return logits
+
+    def _likelihood(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (C, 1, N) -> the mass of the integer bin around each x."""
+        lower = self._logits_cumulative(x - 0.5)
+        upper = self._logits_cumulative(x + 0.5)
+        sign = -torch.sign(lower + upper).detach()
+        return torch.abs(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
+
+    def forward(self, z: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """z: (B, C, H, W). Returns (z_hat, likelihoods) as compressai's forward
+        does: z_hat is z plus U(-0.5, 0.5) noise from ``generator`` when
+        training, else round(z - median) + median."""
+        b, c, h, w = z.shape
+        med = self.medians().to(z.dtype)[None, :, None, None]
+        if training:
+            z_hat = quantize(z, "noise", generator)
+        else:
+            z_hat = torch.round(z - med) + med
+        lk = self._likelihood(z_hat.permute(1, 0, 2, 3).reshape(c, 1, -1))
+        lk = torch.clamp(lk, min=LIKELIHOOD_BOUND)
+        return z_hat, lk.reshape(c, b, h, w).permute(1, 0, 2, 3)
 
     def host_params(self) -> Dict[str, np.ndarray]:
         """The parameters as host numpy arrays, keyed as the JAX package keys them."""

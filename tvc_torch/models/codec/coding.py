@@ -1,4 +1,4 @@
-"""The ELIC bitstream coder (counterpart of ``tvc/models/codec/coding.py``, exact path).
+"""The ELIC bitstream coder (counterpart of ``tvc/models/codec/coding.py``).
 
 ``compress`` codes the hyper latent z through the factorized coder, then each
 slice of y in two checkerboard phases (anchors, then non-anchors) through the
@@ -164,28 +164,36 @@ class ELICCoder:
         return anchor_decs, nonanchor_qs
 
     @torch.no_grad()
-    def _synthesize(self, frames) -> np.ndarray:
-        """g_s over the whole batch on the model's device; (B, H, W, 3) float32."""
+    def _synthesize(self, frames, recon_device: bool = False):
+        """g_s over the whole batch on the model's device; (B, H, W, 3) float32,
+        on the host, or with ``recon_device`` a view of the device tensor."""
         slices = []
         for i in range(self.model.num_slices):
             a = torch.cat([fr[0][i] for fr in frames]).to(self.device)
             q = _chain_input(np.concatenate([fr[1][i] for fr in frames]), self.device)
             slices.append(a + cb.unpack_nonanchor(q))
-        x = self.model.synthesize(torch.cat(slices, dim=1))
-        return _host(x.permute(0, 2, 3, 1))
+        x = self.model.synthesize(torch.cat(slices, dim=1)).permute(0, 2, 3, 1)
+        return x if recon_device else _host(x)
 
     # ---------------- compress / decompress ----------------
 
-    def compress(self, x, return_recon: bool = False, exact: bool = True) -> Dict[str, Any]:
+    def compress(self, x, return_recon: bool = False, exact: bool = True,
+                 recon_device: bool = False) -> Dict[str, Any]:
         """x: (B, H, W, 3) in [0, 1], H and W multiples of 64. Returns the
         streams ``[y_strings, z_strings]`` (y_strings[slice] = [anchor streams,
         non-anchor streams], one per frame), the z shape and phase times; with
         ``return_recon`` also ``x_hat``, the reconstruction from the decoded
-        latents, which equals what ``decompress`` gives."""
+        latents, which equals what ``decompress`` gives. ``recon_device``
+        leaves ``x_hat`` a tensor on the model's device.
+
+        ``exact=False`` is the simulation coder of the rate sweep: one batched
+        ``compress_forward`` on the model's device computes the symbols and
+        the entropy parameters of every frame, and the host rANS codes them.
+        Its streams have the exact path's sizes to within a flipped rounding,
+        but only a receiver that repeats that batched pass could decode them:
+        they are not transmissible."""
         if not exact:
-            raise NotImplementedError(
-                "compress(exact=False), the fused simulation path of rate_sweep, is not "
-                "ported yet (ROADMAP.md)")
+            return self._compress_fused(x, return_recon, recon_device)
         t0 = time.perf_counter()
         with torch.no_grad():
             xt = torch.tensor(np.asarray(x, np.float32), device=self.device)
@@ -209,8 +217,35 @@ class ELICCoder:
                "time": {"transforms": t_enc, "entropy": t_entropy}}
         if return_recon:
             t0 = time.perf_counter()
-            out["x_hat"] = self._synthesize([fr[1:] for fr in frames])
+            out["x_hat"] = self._synthesize([fr[1:] for fr in frames], recon_device)
             out["time"]["synthesis"] = time.perf_counter() - t0
+        return out
+
+    def _compress_fused(self, x, return_recon: bool, recon_device: bool) -> Dict[str, Any]:
+        """The simulation coder (see ``compress``)."""
+        groups, M = self.model.groups, self.model.M
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            xt = torch.tensor(np.asarray(x, np.float32), device=self.device)
+            dev = self.model.compress_forward(xt.permute(0, 3, 1, 2).contiguous(), return_recon)
+            z_sym, y_packed, pa, pn = (_host(dev[k]) for k in ("z_sym", "y_packed", "pa", "pn"))
+        t_enc = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        z_strings = self.fb.compress_symbols(z_sym.astype(np.int32))
+        offs = np.concatenate([[0], np.cumsum(groups)])
+        y_strings = []
+        for i in range(self.model.num_slices):
+            lo, hi = offs[i], offs[i + 1]
+            s_a, _ = self._code_phase(y_packed[:, lo:hi], pa[:, lo:hi], pa[:, M + lo: M + hi])
+            s_n, _ = self._code_phase(y_packed[:, M + lo: M + hi], pn[:, lo:hi],
+                                      pn[:, M + lo: M + hi])
+            y_strings.append([s_a, s_n])
+        out = {"strings": [y_strings, z_strings], "shape": tuple(z_sym.shape[2:4]),
+               "time": {"transforms": t_enc, "entropy": time.perf_counter() - t0}}
+        if return_recon:
+            x_hat = dev["x_hat"].permute(0, 2, 3, 1)
+            out["x_hat"] = x_hat if recon_device else _host(x_hat)
         return out
 
     def decompress(self, strings, shape: Tuple[int, int]) -> Dict[str, Any]:

@@ -8,14 +8,16 @@ aggregation per slice. Submodules carry the reference's state-dict names
 ``ParamAggregation``, ``entropy_bottleneck``), so a reference checkpoint loads
 with no converter (``tvc_torch.utils.convert.load_codec_checkpoint``).
 
-The per-slice methods are what the host coder (``coding.py``) calls, one
-phase at a time, between rANS calls. The training forward, the entropy
-estimation path and the fused simulation compress are not ported.
+The per-slice methods are what the exact host coder (``coding.py``) calls, one
+phase at a time, between rANS calls. The fused forwards run a whole frame
+batch in one pass: ``forward`` (training and evaluation, likelihoods),
+``inference`` (entropy estimation, the whole-GOP sender's keyframes) and
+``compress_forward`` (the simulation coder's symbols and parameters).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,6 +25,13 @@ from torch import nn
 from tvc_torch.core.config import CodecConfig
 from tvc_torch.core.runtime import resolve_device
 from tvc_torch.entropy.factorized import FactorizedEntropy
+from tvc_torch.entropy.gaussian import gaussian_likelihood
+from tvc_torch.models.codec.checkerboard import (
+    keep_anchor,
+    keep_nonanchor,
+    pack_anchor,
+    pack_nonanchor,
+)
 from tvc_torch.models.codec.layers import (
     AttentionBlock,
     CheckboardMaskedConv,
@@ -33,12 +42,7 @@ from tvc_torch.models.codec.layers import (
     ResidualBottleneckBlock,
     lecun_init_,
 )
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} (training, entropy estimation and the fused simulation compress) is not "
-        "ported yet; the port codes keyframes through ELICCoder's exact path (ROADMAP.md)")
+from tvc_torch.ops.quantize import quantize, ste_round
 
 
 class ELICModel(nn.Module):
@@ -143,16 +147,115 @@ class ELICModel(nn.Module):
         x = self.g_s(y_hat)
         return torch.clamp(x, 0.0, 1.0) if clamp else x
 
-    # ------------- not ported -------------
+    # ------------- fused forwards -------------
 
-    def forward(self, x, noisequant: bool = False, rng=None):
-        _not_ported("ELICModel.__call__")
+    def _slice_loop(self, y: torch.Tensor, latent_means: torch.Tensor,
+                    latent_scales: torch.Tensor, noisequant: bool,
+                    generator: Optional[torch.Generator]):
+        """The two-phase checkerboard loop over the slices; returns (y_hat for
+        g_s, y likelihoods)."""
+        y_hat_first = y_hat_prev = None
+        y_hat_gs: List[torch.Tensor] = []
+        y_lk: List[torch.Tensor] = []
+        for i, y_slice in enumerate(torch.split(y, self.groups, dim=1)):
+            support = self.slice_support(i, y_hat_first, y_hat_prev, latent_means, latent_scales)
 
-    def inference(self, x):
-        _not_ported("ELICModel.inference")
+            # phase 1: anchors with zero context
+            mu_a, sc_a = self.anchor_params(i, support)
+            y_anchor = keep_anchor(y_slice)
+            if noisequant:
+                ya_q = quantize(y_anchor, "noise", generator)
+                ya_gs = ste_round(y_anchor)
+            else:
+                ya_q = ste_round(y_anchor - mu_a) + mu_a
+                ya_gs = ya_q
+            ya_q, ya_gs = keep_anchor(ya_q), keep_anchor(ya_gs)
 
-    def compress_forward(self, x, return_recon: bool = False):
-        _not_ported("ELICModel.compress_forward")
+            # phase 2: non-anchors conditioned on the quantized anchors
+            mu_n, sc_n = self.nonanchor_params(i, ya_q, support)
+            y_nonanchor = keep_nonanchor(y_slice)
+            if noisequant:
+                yn_q = quantize(y_nonanchor, "noise", generator)
+                yn_gs = ste_round(y_nonanchor)
+            else:
+                yn_q = ste_round(y_nonanchor - mu_n) + mu_n
+                yn_gs = yn_q
+            yn_q, yn_gs = keep_nonanchor(yn_q), keep_nonanchor(yn_gs)
+
+            mu = keep_anchor(mu_a) + keep_nonanchor(mu_n)
+            sc = keep_anchor(sc_a) + keep_nonanchor(sc_n)
+            y_lk.append(gaussian_likelihood(y_slice, sc, mu))
+
+            y_hat_slice = ya_q + yn_q
+            y_hat_gs.append(ya_gs + yn_gs)
+            if i == 0:
+                y_hat_first = y_hat_slice
+            y_hat_prev = y_hat_slice
+        return torch.cat(y_hat_gs, dim=1), torch.cat(y_lk, dim=1)
+
+    def forward(self, x: torch.Tensor, noisequant: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """The rate-distortion forward of training and evaluation. x: (B, 3, H, W).
+        ``noisequant`` quantizes with U(-0.5, 0.5) noise from ``generator``."""
+        y = self.g_a(x)
+        z = self.h_a(y)
+        if noisequant:
+            if generator is None:
+                raise ValueError("noise quantization needs a generator")
+            z_hat, z_lk = self.entropy_bottleneck(z, training=True, generator=generator)
+        else:
+            _, z_lk = self.entropy_bottleneck(z)
+            med = self.entropy_bottleneck.medians().to(z.dtype)[None, :, None, None]
+            z_hat = ste_round(z - med) + med
+        latent_means, latent_scales = self.hyper_params(z_hat)
+        y_hat, y_lk = self._slice_loop(y, latent_means, latent_scales, noisequant, generator)
+        return {"x_hat": self.g_s(y_hat), "likelihoods": {"y": y_lk, "z": z_lk}}
+
+    def inference(self, x: torch.Tensor) -> Dict[str, Any]:
+        """The entropy-estimation path: rounding everywhere, bits from the
+        likelihoods, no bitstreams; ``x_hat`` is g_s's output, unclamped."""
+        return self.forward(x, noisequant=False)
+
+    def compress_forward(self, x: torch.Tensor, return_recon: bool = False) -> Dict[str, Any]:
+        """The whole compress side in one pass, for the simulation coder: on the
+        encoder every decoded symbol is round(y - mu) + mu, so no bitstream is
+        needed to run the chain. Returns
+
+        - ``z_sym``: round(z - median), (B, N, h, w), float;
+        - ``y_packed``: [pack_anchor(y) | pack_nonanchor(y)], (B, 2M, H, W/2);
+        - ``pa``: [packed anchor means of each slice | packed anchor scales of each slice];
+        - ``pn``: the same for the non-anchors;
+        - ``x_hat`` (``return_recon``): the clamped reconstruction of the decoded latents.
+        """
+        y = self.g_a(x)
+        z = self.h_a(y)
+        med = self.entropy_bottleneck.medians().to(z.dtype)[None, :, None, None]
+        z_sym = torch.round(z - med)
+        lm, ls = self.hyper_params(z_sym + med)
+        y_hat_first = y_hat_prev = None
+        mu_a_p, sc_a_p, mu_n_p, sc_n_p, y_hat_slices = [], [], [], [], []
+        for i, ys in enumerate(torch.split(y, self.groups, dim=1)):
+            sup = self.slice_support(i, y_hat_first, y_hat_prev, lm, ls)
+            mu_a, sc_a = self.anchor_params(i, sup)
+            ya_q = keep_anchor(torch.round(ys - mu_a) + mu_a)
+            mu_n, sc_n = self.nonanchor_params(i, ya_q, sup)
+            yn_q = keep_nonanchor(torch.round(ys - mu_n) + mu_n)
+            y_hat_slice = ya_q + yn_q
+            if i == 0:
+                y_hat_first = y_hat_slice
+            y_hat_prev = y_hat_slice
+            y_hat_slices.append(y_hat_slice)
+            mu_a_p.append(pack_anchor(mu_a))
+            sc_a_p.append(pack_anchor(sc_a))
+            mu_n_p.append(pack_nonanchor(mu_n))
+            sc_n_p.append(pack_nonanchor(sc_n))
+        out = {"z_sym": z_sym,
+               "y_packed": torch.cat([pack_anchor(y), pack_nonanchor(y)], dim=1),
+               "pa": torch.cat(mu_a_p + sc_a_p, dim=1),
+               "pn": torch.cat(mu_n_p + sc_n_p, dim=1)}
+        if return_recon:
+            out["x_hat"] = self.synthesize(torch.cat(y_hat_slices, dim=1))
+        return out
 
 
 def make_elic(cfg: Optional[CodecConfig] = None, seed: int = 0, device="cuda") -> ELICModel:

@@ -38,30 +38,34 @@ def per_frame_bits_split(strings, batch: int) -> Tuple[List[int], List[int]]:
     return y_bits, z_bits
 
 
-def code_frames_enc(coder: ELICCoder, frames: np.ndarray, patch: int = 64):
-    """Code a (T, H, W, 3) [0, 1] stack through the real bitstream. Returns
-    (decoded frames (T, H, W, 3), per-frame bits, the coder's output with
-    its streams)."""
+def code_frames_enc(coder: ELICCoder, frames: np.ndarray, patch: int = 64, exact: bool = True,
+                    recon_device: bool = False):
+    """Code a (T, H, W, 3) [0, 1] stack. Returns (decoded frames (T, H, W, 3),
+    per-frame bits, the coder's output with its streams); the decoded frames
+    are a host array, or with ``recon_device`` a tensor on the coder's device.
+    ``exact=False`` takes the simulation coder (``ELICCoder.compress``)."""
     frames = np.asarray(frames, np.float32)
     x, (pad_b, pad_r) = pad_to_multiple(frames, patch)
-    enc = coder.compress(x, return_recon=True)
+    enc = coder.compress(x, return_recon=True, exact=exact, recon_device=recon_device)
     x_hat = enc["x_hat"][:, : x.shape[1] - pad_b, : x.shape[2] - pad_r, :]
     return x_hat, per_frame_bits(enc["strings"], frames.shape[0]), enc
 
 
 def code_frames(coder: ELICCoder, frames: np.ndarray, patch: int = 64,
                 exact: bool = True) -> Tuple[np.ndarray, List[int]]:
-    """Encode and reconstruct a (T, H, W, 3) [0, 1] stack through the real
-    bitstream; (decoded frames, per-frame bits). The reconstruction comes from
-    the encoder's decoded latents, which equal the decoder's."""
-    if not exact:
-        raise NotImplementedError(
-            "code_frames(exact=False), the fused simulation path, is not ported yet (ROADMAP.md)")
-    x_hat, bits, _ = code_frames_enc(coder, frames, patch)
+    """Encode and reconstruct a (T, H, W, 3) [0, 1] stack; (decoded frames,
+    per-frame bits). The reconstruction comes from the encoder's decoded
+    latents, which equal the decoder's. ``exact=False`` takes the simulation
+    coder of the rate sweep, whose streams are not transmissible."""
+    x_hat, bits, _ = code_frames_enc(coder, frames, patch, exact)
     return x_hat, bits
 
 
-def code_frames_device(*args, **kwargs):
-    raise NotImplementedError(
-        "code_frames_device (the device-resident GOP loop's keyframes) is not ported yet "
-        "(ROADMAP.md)")
+def code_frames_device(coder: ELICCoder, frames: np.ndarray, patch: int = 64,
+                       exact: bool = True, return_enc: bool = False):
+    """``code_frames`` whose reconstruction stays on the coder's device: the
+    device-resident GOP loop feeds it to the next prediction without a trip
+    through the host. Returns (x_hat (T, H, W, 3) tensor, per-frame bits), and
+    the coder's output too with ``return_enc``."""
+    x_hat, bits, enc = code_frames_enc(coder, frames, patch, exact, recon_device=True)
+    return (x_hat, bits, enc) if return_enc else (x_hat, bits)

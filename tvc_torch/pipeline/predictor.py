@@ -14,11 +14,12 @@ from typing import Optional
 import torch
 
 from tvc_torch.core.config import Config
-from tvc_torch.core.runtime import resolve_device, to_tensor
+from tvc_torch.core.runtime import batched_conv_algorithms, resolve_device, to_tensor
 from tvc_torch.models.diffusion.layers import init_params
 from tvc_torch.models.diffusion.ncsnpp import UNetMoreDDPM
 from tvc_torch.pipeline.transforms import data_transform, inverse_data_transform
 from tvc_torch.samplers import Schedule, get_sampler
+from tvc_torch.samplers.ancestral import step_constants
 
 
 class FramePredictor:
@@ -56,6 +57,24 @@ class FramePredictor:
         """UNet calls per ``generate``."""
         return len(self.sub) + (1 if self.cfg.sampling.denoise else 0)
 
+    def draws(self, generator: torch.Generator, batch: int = 1):
+        """(x_init, noise): the draws ``generate`` makes from ``generator`` for
+        ``batch`` predictions, in the same order, so that passing them gives
+        the same frames. Rows of steps that add no noise are zeros."""
+        cfg = self.cfg
+        size = cfg.data.image_size
+        shape = (batch, size, size, cfg.data.channels * cfg.data.num_frames)
+
+        def randn():
+            return torch.randn(shape, generator=generator, dtype=torch.float32,
+                               device=generator.device)
+
+        x_init = randn()
+        sigma = step_constants(self.sub, denoise=cfg.sampling.denoise)["sigma"]
+        noise = torch.stack([randn() if s != 0 else
+                             torch.zeros(shape, device=generator.device) for s in sigma])
+        return x_init, noise
+
     @torch.no_grad()
     def generate(self, cond_frames: torch.Tensor, generator: Optional[torch.Generator] = None,
                  x_init: Optional[torch.Tensor] = None,
@@ -76,10 +95,11 @@ class FramePredictor:
             x_init = torch.randn((b, size, size, c * cfg.data.num_frames), generator=generator,
                                  dtype=torch.float32, device=generator.device)
         x_init = x_init.to(device=self.device, dtype=torch.float32)
-        out = self.sampler(
-            x_init, self.model, self.sub, cond=cond, denoise=samp.denoise,
-            clip_before=samp.clip_before, final_only=True, generator=generator, noise=noise,
-            gamma=cfg.model.gamma, t_min=samp.init_prev_t)[-1]
+        with batched_conv_algorithms(b, self.device):
+            out = self.sampler(
+                x_init, self.model, self.sub, cond=cond, denoise=samp.denoise,
+                clip_before=samp.clip_before, final_only=True, generator=generator, noise=noise,
+                gamma=cfg.model.gamma, t_min=samp.init_prev_t)[-1]
         out = inverse_data_transform(cfg, out.float())
         # (B,H,W,C*F) -> (B,F,H,W,C): frames are channel-stacked [f0 c0..2, f1 ...]
         return out.reshape(b, size, size, cfg.data.num_frames, c).permute(0, 3, 1, 2, 4)

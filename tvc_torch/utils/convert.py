@@ -68,7 +68,7 @@ def unet_from_jax(cfg: Config, np_params: Dict[str, Any]) -> Dict[str, torch.Ten
     """``{'params': {'unet': {'m{i}': ...}}}`` (the JAX ``UNetMoreDDPM``
     variables) -> the port's ``UNetMoreDDPM`` state dict (``unet.all_modules.{i}.*``)."""
     if cfg.model.spade or cfg.model.arch in ("unetmore3d", "unetmorepseudo3d"):
-        raise NotImplementedError("only the 2-D NCSN++ UNet is ported")
+        raise NotImplementedError("only the 2-D NCSN++ UNet is ported (3-D archs: ROADMAP.md A12)")
     return state_dict_from_jax(np_params["params"]["unet"], "unet.")
 
 
