@@ -22,13 +22,15 @@ from tvc_torch.ops import attention as attn
 
 pytestmark = pytest.mark.gpu
 
-# the flagship UNet's attention shapes (B, H, T, d), plus ragged T (T = 100 and
-# 1000: the last key split is short), small heads and d = 30 (not a multiple of
-# 4: the kernel's element-by-element path)
-SHAPES = [(1, 2, 1024, 192), (1, 3, 256, 192), (1, 4, 64, 192), (8, 2, 1024, 192),
-          (2, 3, 100, 192), (2, 2, 33, 64), (1, 1, 7, 8), (1, 2, 64, 256),
-          (1, 2, 1000, 192), (1, 3, 77, 30)]
-FLAGSHIP = SHAPES[:3]
+# the flagship UNet's attention shapes (B, H, T, d) at every batch a serving
+# path predicts at (1; 2, the whole-GOP sender's run_batched; 4, the CLI sweep;
+# 8, the lockstep runner), each batch with its own launch plan, plus ragged T
+# (T = 100 and 1000: the last key split is short), small heads and d = 30 (not
+# a multiple of 4: the kernel's element-by-element path)
+FLAGSHIP = [(1, 2, 1024, 192), (1, 3, 256, 192), (1, 4, 64, 192)]
+BATCHED = [(b, h, t, d) for b in (2, 4, 8) for _, h, t, d in FLAGSHIP]
+SHAPES = FLAGSHIP + BATCHED + [(2, 3, 100, 192), (2, 2, 33, 64), (1, 1, 7, 8),
+                               (1, 2, 64, 256), (1, 2, 1000, 192), (1, 3, 77, 30)]
 
 
 @pytest.fixture
@@ -90,7 +92,8 @@ def test_attention_kernel_unaligned_input_matches_plain(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", FLAGSHIP + [(1, 2, 1000, 192), (2, 3, 100, 192)],
+@pytest.mark.parametrize("shape", [s for s in SHAPES
+                                   if attn.attention_plan(*s, torch.float32).splits > 1],
                          ids=lambda s: "x".join(map(str, s)))
 def test_attention_kernel_splits_are_bit_repeatable(cuda, shape, dtype):
     assert attn.attention_plan(*shape, dtype).splits > 1

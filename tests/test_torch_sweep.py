@@ -217,6 +217,8 @@ def _dataset(path, n_frames=T):
     (["--device-gop", "--batched", "2"], "out", "drop --batched"),
     ([], "err", "A11"),
     (["--no-fvd", "--queue-dir", "q"], "err", "A10"),
+    (["--no-fvd", "--i3d-ckpt", "i3d.pt"], "err", "A11"),
+    (["--no-fvd", "--queue-stale-after", "60"], "err", "A10"),
     (["--no-fvd"], "err", "--allow-uncalibrated"),
 ])
 def test_cli_sweep_guards(tmp_path, capsys, args, where, text):

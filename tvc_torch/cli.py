@@ -294,7 +294,8 @@ def cmd_sweep(argv: List[str]) -> int:
                          "--thresholds for psnr, e.g. 30 28 26)")
     ap.add_argument("--no-fvd", action="store_true",
                     help="no FVD (required: FVD is not ported, ROADMAP.md A11)")
-    ap.add_argument("--i3d-ckpt", type=str, default=None)
+    ap.add_argument("--i3d-ckpt", type=str, default=None,
+                    help="I3D weights for FVD (not ported, ROADMAP.md A11)")
     ap.add_argument("--lpips-alex", type=str, default=None, help="torchvision alexnet .pth")
     ap.add_argument("--lpips-lin", type=str, default=None, help="lpips linear heads .pth")
     ap.add_argument("--bench-264", type=str, default=None)
@@ -315,7 +316,8 @@ def cmd_sweep(argv: List[str]) -> int:
     ap.add_argument("--process-id", type=int, default=0)
     ap.add_argument("--queue-dir", type=str, default=None,
                     help="work-queue scheduling (not ported, ROADMAP.md A10)")
-    ap.add_argument("--queue-stale-after", type=float, default=900.0)
+    ap.add_argument("--queue-stale-after", type=float, default=None,
+                    help="the work queue's lease (not ported, ROADMAP.md A10)")
     ap.add_argument("--allow-uncalibrated", action="store_true",
                     help="run on random LPIPS weights; RD curves are then meaningless, and "
                          "config.yml says provenance.calibrated=false")
@@ -328,13 +330,14 @@ def cmd_sweep(argv: List[str]) -> int:
     if args.device_gop and args.batched:
         print("[tvc_torch] --device-gop runs GOP chains one at a time; drop --batched")
         return 2
-    if not args.no_fvd:
-        print("[tvc_torch] ERROR: FVD is not ported (I3D, ROADMAP.md A11); pass --no-fvd",
-              file=sys.stderr)
+    if not args.no_fvd or args.i3d_ckpt:
+        print("[tvc_torch] ERROR: FVD is not ported (I3D, ROADMAP.md A11); pass --no-fvd "
+              "and no --i3d-ckpt", file=sys.stderr)
         return 2
-    if args.queue_dir:
-        print("[tvc_torch] ERROR: --queue-dir needs the work queue, not ported (ROADMAP.md "
-              "A10); use --num-processes/--process-id with --batched", file=sys.stderr)
+    if args.queue_dir or args.queue_stale_after is not None:
+        print("[tvc_torch] ERROR: --queue-dir and --queue-stale-after need the work queue, "
+              "not ported (ROADMAP.md A10); use --num-processes/--process-id with --batched",
+              file=sys.stderr)
         return 2
 
     from tvc_torch.metrics.lpips import LPIPSMetric
