@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive tvc_torch's main path on one NVIDIA GPU at full width: a whole
 30-frame GOP coded into TVC2 containers and a payload, and rebuilt byte for
-byte by a receiver in a fresh process.
+byte by a receiver in a fresh process; then the serving paths, the rate
+sweep and the evaluation path (FVD, LPIPS backbones, FID, the anchors).
 
     python3 chip_smoke.py
 
@@ -61,9 +62,24 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 13. the sequential sweep on a 7-frame cut of the dataset and q0's checkpoint:
     ``python -m tvc_torch.cli sweep --fused-gop`` in a fresh process, and
     ``run_sweep`` here through ``run_gop`` and through ``DeviceGOPRunner``,
-    which must write the same ``points.json`` byte for byte.
+    which must write the same ``points.json`` byte for byte;
+14. the evaluation path: (a) the full 400-class I3D (seeded, every BatchNorm
+    tensor drawn) on B = 2 clips of 10 frames on the card against the same
+    module on the CPU, its time per 30-frame video on cuDNN's heuristic and
+    timed algorithms, and ``FVDMetric`` on phase 7's GOP against the video
+    (the sweep's repeated-pair form) and on two distinct videos; (b)
+    InceptionV3 features of 8 frames at 299x299 and the VGG and SqueezeNet
+    LPIPS against the CPU, and FID/PR on the features; (c) the
+    ``calculate_{psnr,ssim,lpips,fvd}`` wrappers on phase 7's GOP; (d)
+    ``python -m tvc_torch.cli sweep --i3d-ckpt`` (the seeded I3D saved in
+    pytorch_i3d's keys) in a fresh process on phase 12's dataset, which must
+    write a finite FVD into ``points.json`` and ``fvd_0.npy``, stamp
+    ``fvd_calibrated: true`` and launch 1010 kernels per update; (e)
+    ``python -m tvc_torch.cli anchors --metrics`` over two CRF values in a
+    fresh process, through ffmpeg where the machine has it and otherwise
+    through a lossless stand-in, which the log names loudly.
 
-Every path above (7, 8, 10-13) must launch the attention kernel 1010 times per
+Every path above (7, 8, 10-14) must launch the attention kernel 1010 times per
 update or lockstep sweep; the ``kernels`` line sums their launches.
 
 The last lines are the ``kernels`` JSON, the card's name and power limit, and
@@ -78,6 +94,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -783,7 +800,7 @@ def sweep_process(args, tag):
     (stdout, host seconds, attention launches it reports)."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "tvc_torch.cli", "sweep", "--device", "cuda",
-                           "--no-fvd", "--allow-uncalibrated", *args],
+                           "--allow-uncalibrated", *args],
                           cwd=ROOT, capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t0
     for line in (proc.stdout + proc.stderr).strip().splitlines():
@@ -814,7 +831,7 @@ def phase_cli_sweep(tmp, ckpts, data, config_mods):
     for i in range(2):
         out = os.path.join(tmp, f"batched_{i}")
         stdout, wall, launches = sweep_process(
-            ["--data-npy", data, "--output-path", out, "--batched", "4",
+            ["--no-fvd", "--data-npy", data, "--output-path", out, "--batched", "4",
              "--qualities", "0", "1", "--thresholds", *SWEEP_THRESHOLDS,
              "--codec-ckpts", *ckpts, "--config-mod", *config_mods], f"sweep{i}")
         m = re.search(r"\[batched\] (\d+) sampler sweeps for (\d+) rate points \((\d+) retired",
@@ -877,7 +894,8 @@ def phase_seq_sweep(torch, attn, tmp, ckpts, data, config_mods, cfg, predictor, 
     np.save(short, np.load(data)[:, :SEQ_FRAMES])
     per_update = predictor.n_steps * sum(n for *_, n in LEVELS)
     stdout, wall, launches = sweep_process(
-        ["--data-npy", short, "--output-path", os.path.join(tmp, "fused"), "--fused-gop",
+        ["--no-fvd", "--data-npy", short, "--output-path", os.path.join(tmp, "fused"),
+         "--fused-gop",
          "--qualities", "0", "--thresholds", *SWEEP_THRESHOLDS, "--codec-ckpts", ckpts[0],
          "--config-mod", *config_mods], "fused_sweep")
     updates, n_points = updates_printed(stdout)
@@ -898,7 +916,8 @@ def phase_seq_sweep(torch, attn, tmp, ckpts, data, config_mods, cfg, predictor, 
         with contextlib.redirect_stdout(buf):
             _, t = timed(torch, lambda: run_sweep(
                 cfg, video, coders, predictor, out, qualities=[0],
-                thresholds=[float(v) for v in SWEEP_THRESHOLDS], lpips_metric=lpips, **flags))
+                thresholds=[float(v) for v in SWEEP_THRESHOLDS], with_fvd=False,
+                lpips_metric=lpips, **flags))
         n = attn.launches  # read right after the path
         for line in buf.getvalue().strip().splitlines():
             log(f"  {name}_sweep| " + line)
@@ -915,6 +934,195 @@ def phase_seq_sweep(torch, attn, tmp, ckpts, data, config_mods, cfg, predictor, 
     log("seq_sweep " + json.dumps(row))
     if not row["device_gop_equals_run_gop"]:
         fail("run_sweep through DeviceGOPRunner wrote other RD files than through run_gop")
+    return row
+
+
+EVAL_REL_TOL = 1e-4   # card against CPU: max |diff| / max |CPU| of I3D and InceptionV3 features
+LPIPS_TOL = 1e-5      # card against CPU: max |diff| of LPIPS distances
+EVAL_FRAMES = 10      # phase 14a's I3D check: B = 2 videos of 10 frames (the least FVD takes)
+# a stand-in for ffmpeg where the machine has none: "encodes" by wrapping the
+# raw frames, "decodes" by unwrapping them (lossless), so the anchors' file
+# plumbing and metrics run; phase 14e says loudly when it is used
+STUB_FFMPEG = """#!/usr/bin/env python3
+import sys
+args = sys.argv[1:]
+out = args[-2] if args[-1] == "-y" else args[-1]
+data = open(args[args.index("-i") + 1], "rb").read()
+if "-c:v" in args:
+    pad = b"\\0" * ((52 - int(args[args.index("-crf") + 1])) * 64)
+    open(out, "wb").write(b"STUB" + len(data).to_bytes(8, "little") + data + pad)
+else:
+    open(out, "wb").write(data[12:12 + int.from_bytes(data[4:12], "little")])
+"""
+
+
+def rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def write_i3d_checkpoint(torch, tmp):
+    """The seeded I3D of ``FVDMetric(seed=0)`` saved as pytorch_i3d saves its
+    state dict (no ``num_batches_tracked``, as older checkpoints)."""
+    from tvc_torch.models.i3d import InceptionI3d
+
+    model = InceptionI3d(device="cpu")
+    model.init_weights(torch.Generator().manual_seed(0))
+    path = os.path.join(tmp, "i3d_seeded.pt")
+    torch.save({k: v for k, v in model.state_dict().items()
+                if not k.endswith("num_batches_tracked")}, path)
+    return path
+
+
+def phase_eval(torch, tmp, video, gop_frames, data, ckpts, i3d_ckpt, config_mods, card):
+    """Phase 14: the evaluation networks on the card against the CPU, the
+    video wrappers on phase 7's GOP, a sweep with FVD and the anchors, each
+    command in a fresh process."""
+    from tvc_torch.metrics import fid_pr
+    from tvc_torch.metrics import video as vmetrics
+    from tvc_torch.metrics.fvd import FVDMetric
+    from tvc_torch.metrics.lpips import LPIPSMetric
+    from tvc_torch.models.inception import FIDInceptionFeatures
+
+    row = {"card": card}
+    # (a) the I3D: features on the card in both algorithm modes against the CPU
+    clips = np.stack([video[0, :EVAL_FRAMES], synthetic_video(n=EVAL_FRAMES, seed=11)[0]])
+    t0 = time.perf_counter()
+    host_feats = FVDMetric(device="cpu", seed=0).features(clips)
+    row["i3d_cpu_s_b2_t10"] = time.perf_counter() - t0
+    rec, gt = np.repeat(gop_frames[None], 2, 0), np.repeat(video[:, :GOP_FRAMES], 2, 0)
+    other = np.repeat(synthetic_video(n=GOP_FRAMES, seed=11), 2, 0)
+    fvd = {}
+    metric = FVDMetric(device="cuda", seed=0)
+
+    def measure():
+        torch.cuda.reset_peak_memory_stats()
+        feats, first_s = timed(torch, lambda: metric.features(clips))
+        metric.features(rec)
+        per_video = [timed(torch, lambda: metric.features(rec))[1] / 2 for _ in range(3)]
+        sweep_form, fvd_s = timed(torch, lambda: metric(rec, gt))
+        return {"max_rel_err_vs_cpu": rel_err(feats, host_feats), "first_call_s_b2_t10": first_s,
+                "i3d_ms_per_30_frame_video": [1e3 * t for t in per_video],
+                "fvd_sweep_form": sweep_form, "fvd_sweep_form_s": fvd_s,
+                "fvd_distinct_videos": metric(gt, other),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    # FVDMetric runs on cuDNN's heuristic algorithms; "timed" lets cuDNN time
+    # its deterministic float32 ones (no TF32), as the batched UNet does
+    fvd["heuristic"] = measure()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=True,
+                                    allow_tf32=False):
+        fvd["timed"] = measure()
+    for mode, r in fvd.items():
+        if not r["max_rel_err_vs_cpu"] <= EVAL_REL_TOL:
+            fail(f"I3D ({mode}) on the card differs from the CPU: {r['max_rel_err_vs_cpu']}")
+        if not (np.isfinite(r["fvd_sweep_form"]) and r["fvd_sweep_form"] >= 0
+                and np.isfinite(r["fvd_distinct_videos"])):
+            fail(f"FVD ({mode}): {r}")
+    row["i3d"] = fvd
+
+    # (b) InceptionV3 features of 8 frames at 299x299, VGG and SqueezeNet LPIPS
+    frames = video[0, :8]
+    incep = FIDInceptionFeatures(device="cuda", seed=0)
+    incep(frames)
+    feats, incep_s = timed(torch, lambda: incep(frames))
+    host_incep = FIDInceptionFeatures(device="cpu", seed=0)(frames)
+    row["inception"] = {"max_rel_err_vs_cpu": rel_err(feats, host_incep),
+                        "ms_b8": 1e3 * incep_s}
+    (fid, prec, recall), fid_s = timed(torch, lambda: fid_pr.get_fid_pr(
+        feats, incep(gop_frames[:8]), k=3))
+    row["fid_pr"] = {"fid": fid, "precision": prec, "recall": recall, "s": fid_s}
+    if not row["inception"]["max_rel_err_vs_cpu"] <= EVAL_REL_TOL or not np.isfinite(fid):
+        fail(f"InceptionV3 on the card: {row['inception']}, FID {fid}")
+    for net_type in ("vgg", "squeeze"):
+        card_lp = LPIPSMetric.create(device="cuda", net_type=net_type)
+        card_lp(gop_frames[:8], frames)
+        d, lp_s = timed(torch, lambda: card_lp(gop_frames[:8], frames).cpu())
+        host_d = LPIPSMetric.create(device="cpu", net_type=net_type)(gop_frames[:8], frames)
+        err = float((d - host_d).abs().max())
+        row[f"lpips_{net_type}"] = {"max_abs_err_vs_cpu": err, "ms_b8": 1e3 * lp_s}
+        if not err <= LPIPS_TOL:
+            fail(f"LPIPS({net_type}) on the card differs from the CPU by {err}")
+
+    # (c) the video wrappers on phase 7's GOP, in the sweep's repeated-pair form
+    metric = FVDMetric(device="cuda", seed=0)
+    lp = LPIPSMetric.create(device="cuda")
+    wrappers = {}
+    for name, fn in (("psnr", lambda: vmetrics.calculate_psnr(rec, gt)),
+                     ("ssim", lambda: vmetrics.calculate_ssim(rec, gt)),
+                     ("lpips", lambda: vmetrics.calculate_lpips(rec, gt, metric=lp)),
+                     ("fvd", lambda: vmetrics.calculate_fvd(rec, gt, metric=metric))):
+        out, secs = timed(torch, fn)
+        keys = list(out[name])
+        want = ([f"[:{k}]" for k in range(10, GOP_FRAMES + 1, 10)] if name == "fvd"
+                else [f"[:{k}]" for k in range(1, GOP_FRAMES + 1)]) + ["final"]
+        if keys != want or not all(np.isfinite(v) for v in out[name].values()):
+            fail(f"calculate_{name}: keys {keys}, values {out[name]}")
+        wrappers[name] = {"final": out[name]["final"], "s": secs}
+    row["wrappers"] = wrappers
+
+    # (d) the sweep with FVD, in a fresh process, on the seeded I3D checkpoint
+    out = os.path.join(tmp, "fvd_sweep")
+    stdout, wall, launches = sweep_process(
+        ["--data-npy", data, "--output-path", out, "--qualities", "0", "--thresholds",
+         SWEEP_THRESHOLDS[0], "--codec-ckpts", ckpts[0], "--i3d-ckpt", i3d_ckpt,
+         "--config-mod", *config_mods], "fvd_sweep")
+    updates, n_points = updates_printed(stdout)
+    files, blobs = sweep_outputs(out)
+    points = json.loads(blobs.get("points.json", b"[]"))
+    fvd_npy = np.load(os.path.join(out, "output_0", "fvd_0.npy")) if "fvd_0.npy" in files else None
+    import yaml
+
+    with open(os.path.join(out, "config.yml")) as f:
+        provenance = yaml.safe_load(f).get("provenance")
+    per_update = 101 * sum(n for *_, n in LEVELS)
+    row["sweep"] = {"process_wall_s": wall, "points": n_points, "updates": updates,
+                    "attention_launches": launches, "fvd": [p["fvd"] for p in points],
+                    "fvd_npy": None if fvd_npy is None else fvd_npy.tolist(),
+                    "provenance": provenance, "files": files}
+    if n_points != 1 or len(points) != 1 or fvd_npy is None:
+        fail(f"the sweep with FVD kept {n_points} points and wrote {files}")
+    if not (np.isfinite(points[0]["fvd"]) and points[0]["fvd"] >= 0
+            and np.isfinite(fvd_npy[1]).all() and fvd_npy[1, 0] == points[0]["fvd"]):
+        fail(f"the sweep's FVD: points.json {points[0]['fvd']}, fvd_0.npy {fvd_npy}")
+    if launches != per_update * updates or updates <= 0:
+        fail(f"the sweep with FVD launched {launches}, not {per_update} x {updates}")
+    if not provenance or provenance.get("fvd_calibrated") is not True \
+            or provenance.get("calibrated") is not False:
+        fail(f"the sweep's provenance is {provenance}")
+
+    # (e) the anchors over two CRF values, LPIPS and FVD on the card
+    env = dict(os.environ)
+    stubbed = shutil.which("ffmpeg") is None
+    if stubbed:
+        bindir = os.path.join(tmp, "stub_bin")
+        os.makedirs(bindir)
+        with open(os.path.join(bindir, "ffmpeg"), "w") as f:
+            f.write(STUB_FFMPEG)
+        os.chmod(os.path.join(bindir, "ffmpeg"), 0o755)
+        env["PATH"] = bindir + os.pathsep + env.get("PATH", "")
+        log("ANCHORS: NO ffmpeg ON PATH -- the encoder is STUBBED by a lossless stand-in; "
+            "PSNR is infinite and LPIPS/FVD are 0; no H.264/H.265 number below is real")
+    arr_path = os.path.join(tmp, "anchors.npy")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tvc_torch.cli", "anchors", "--device", "cuda",
+                           "--data-npy", data, "--output", arr_path, "--codec", "libx264",
+                           "--qp-min", "30", "--qp-max", "31", "--metrics",
+                           "--allow-uncalibrated", "--i3d-ckpt", i3d_ckpt],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    anchors_wall = time.perf_counter() - t0
+    for line in (proc.stdout + proc.stderr).strip().splitlines():
+        log("  anchors| " + line)
+    if proc.returncode != 0:
+        fail(f"the anchors process exited {proc.returncode}")
+    arr = np.load(arr_path)
+    row["anchors"] = {"ffmpeg_stubbed": stubbed, "process_wall_s": anchors_wall,
+                      "psnr": arr[0, 0].tolist(), "lpips": arr[0, 1].tolist(),
+                      "fvd": arr[0, 2].tolist(), "bpp": arr[0, 3].tolist()}
+    if arr.shape != (1, 4, 2) or not (np.all(arr[0, 3] > 0) and np.all(np.isfinite(arr[0, 1:3]))
+                                      and np.all(arr[0, 1:3] >= 0)):
+        fail(f"the anchors array {arr.shape}: {row['anchors']}")
+    log("eval " + json.dumps(row))
     return row
 
 
@@ -988,6 +1196,11 @@ def main() -> None:
         sweep = phase_cli_sweep(tmp, ckpts, data, ["codec.entropy_backend=device"])
         seq = phase_seq_sweep(torch, attn, tmp, ckpts, data, ["codec.entropy_backend=device"],
                               cfg, predictor, lpips)
+        t14 = time.perf_counter()
+        evaluation = phase_eval(torch, tmp, video, gop["result"].x_ge[0], data, ckpts,
+                                write_i3d_checkpoint(torch, tmp), ["codec.entropy_backend=device"],
+                                card)
+        evaluation_s = time.perf_counter() - t14
     path_launches = {"run_gop": gop["attention_launches"],
                      "device_gop": device_gop["attention_launches"],
                      "fused_run": fused["attention_launches"],
@@ -997,7 +1210,8 @@ def main() -> None:
                      "cli_sweep_second_process": sweep["second_process_attention_launches"],
                      "cli_sweep_fused": seq["fused"]["attention_launches"],
                      "run_sweep_run_gop": seq["run_gop"]["attention_launches"],
-                     "run_sweep_device_gop": seq["device_gop"]["attention_launches"]}
+                     "run_sweep_device_gop": seq["device_gop"]["attention_launches"],
+                     "cli_sweep_fvd": evaluation["sweep"]["attention_launches"]}
     log("launches " + json.dumps(path_launches))
     main_launches = sum(path_launches.values())
     if min(path_launches.values()) <= 0:
@@ -1038,6 +1252,11 @@ def main() -> None:
         "cli_sweep_fused_wall_s": seq["fused"]["process_wall_s"],
         "run_sweep_wall_s": {k: seq[k]["wall_s"] for k in ("run_gop", "device_gop")},
         "batched_peak_mem_gb": [batched["peak_mem_gb_first_run"], batched["peak_mem_gb_rerun"]],
+        "eval_phase_s": evaluation_s,
+        "i3d_ms_per_30_frame_video": {m: min(v["i3d_ms_per_30_frame_video"])
+                                      for m, v in evaluation["i3d"].items()},
+        "cli_sweep_fvd_wall_s": evaluation["sweep"]["process_wall_s"],
+        "anchors_wall_s": evaluation["anchors"]["process_wall_s"],
         "numerics": numerics(),
         "total_s": time.perf_counter() - t_start}))
     kernels = [{

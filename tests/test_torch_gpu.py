@@ -315,3 +315,41 @@ def test_batched_prediction_reruns_bit_identical(cuda):
     assert torch.equal(outs[0], outs[1])
     again = pred.generate(cond[:1], generator=torch.Generator(device="cuda").manual_seed(1))
     assert torch.equal(one, again)
+
+
+def _rel_err(a, b):
+    return (a - b).abs().max().item() / b.abs().max().item()
+
+
+def test_i3d_features_on_card_match_cpu(cuda):
+    """The full I3D (seeded, every BatchNorm tensor drawn) on the card against
+    the same module on the CPU: features within 1e-4 of the largest."""
+    import numpy as np
+
+    from tvc_torch.metrics.fvd import FVDMetric
+
+    host = FVDMetric(device="cpu", seed=3)
+    card = FVDMetric(device="cuda", seed=3)
+    videos = np.random.RandomState(4).rand(2, 10, 64, 80, 3).astype(np.float32)
+    want, got = torch.tensor(host.features(videos)), torch.tensor(card.features(videos))
+    assert got.shape == (2, 400) and _rel_err(got, want) <= 1e-4
+    v1 = np.repeat(videos[:1], 2, 0)
+    v2 = np.repeat(videos[1:], 2, 0)
+    assert abs(card(v1, v2) - host(v1, v2)) <= 1e-3 * host(v1, v2)
+
+
+def test_inception_and_lpips_on_card_match_cpu(cuda):
+    import numpy as np
+
+    from tvc_torch.metrics.lpips import LPIPSMetric
+    from tvc_torch.models.inception import FIDInceptionFeatures
+
+    imgs = np.random.RandomState(5).rand(2, 64, 64, 3).astype(np.float32)
+    want = torch.tensor(FIDInceptionFeatures(device="cpu", seed=6)(imgs))
+    got = torch.tensor(FIDInceptionFeatures(device="cuda", seed=6)(imgs))
+    assert got.shape == (2, 2048) and _rel_err(got, want) <= 1e-4
+    other = np.random.RandomState(7).rand(2, 64, 64, 3).astype(np.float32)
+    for net_type in ("alex", "vgg", "squeeze"):
+        host = LPIPSMetric.create(device="cpu", net_type=net_type)(imgs, other)
+        card = LPIPSMetric.create(device="cuda", net_type=net_type)(imgs, other).cpu()
+        assert (host - card).abs().max().item() <= 1e-5, net_type

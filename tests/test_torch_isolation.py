@@ -12,9 +12,11 @@ import torch
 
 from tvc_torch import cli
 from tvc_torch.core.config import CodecConfig, Config
+from tvc_torch.metrics.fvd import FVDMetric
 from tvc_torch.metrics.lpips import LPIPSMetric
 from tvc_torch.models.codec.elic import make_elic
 from tvc_torch.models.diffusion.ncsnpp import UNetMoreDDPM
+from tvc_torch.models.inception import FIDInceptionFeatures
 from tvc_torch.pipeline.predictor import FramePredictor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -62,8 +64,8 @@ def test_sources_name_no_jax(path):
                 assert m.split(".")[0] not in ("jax", "jaxlib", "flax", "tvc"), (f, m)
 
 
-@pytest.mark.parametrize("entry", ["unet", "predictor", "lpips", "coder", "cli_codec",
-                                   "cli_gop_send", "cli_gop_receive", "cli_sweep"])
+@pytest.mark.parametrize("entry", ["unet", "predictor", "lpips", "coder", "fvd", "fid_inception",
+                                   "cli_codec", "cli_gop_send", "cli_gop_receive", "cli_sweep"])
 def test_default_device_raises_without_a_card(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a card; the default device is valid here")
@@ -76,6 +78,10 @@ def test_default_device_raises_without_a_card(entry, tmp_path):
             LPIPSMetric.create()
         elif entry == "coder":
             make_elic(CodecConfig(N=16, M=24, groups=(4, 4, 4, 4, 8)))
+        elif entry == "fvd":
+            FVDMetric()
+        elif entry == "fid_inception":
+            FIDInceptionFeatures()
         else:
             frames = tmp_path / "frames.npy"
             np.save(frames, np.zeros((2, 64, 64, 3), np.float32))

@@ -5,12 +5,15 @@ Tolerances: RD envelopes, work partitions and config dumps equal; the rate
 sweep's points, ``d`` and bpp equal (the whole-GOP sender's likelihood bpp
 within 1e-4 relative), PSNR within 1e-3 dB and LPIPS within 1e-5, with JAX's
 noise handed to each point; the drivers write the JAX package's file layout.
-The CLI's guards exit 2 as the JAX package's do, ``config.yml`` carries the
-provenance, and ``gop send --device-gop`` and ``gop receive`` in other
-processes give the same frames byte for byte.
+With FVD (the I3D's weights drawn on the port and carried into JAX), the
+sequential driver's ``points.json`` FVD values are the JAX sweep's within
+1e-4 relative. The CLI's guards exit 2 as the JAX package's do, ``config.yml``
+carries the provenance, and ``gop send --device-gop`` and ``gop receive`` in
+other processes give the same frames byte for byte.
 """
 
 import dataclasses
+import functools
 import json
 import os
 
@@ -21,6 +24,7 @@ import yaml
 
 import jax
 
+from test_torch_eval import _JaxFVD, _jax_i3d_params, _np_sd_tensors, _random_i3d
 from test_torch_gop import (  # noqa: F401  (module-scoped fixtures)
     THRESHOLDS,
     TINY_MODS,
@@ -40,6 +44,7 @@ from tvc.pipeline.sender import RatePoint as JRatePoint
 from tvc.pipeline.sender import rate_sweep as j_rate_sweep
 from tvc_torch import cli
 from tvc_torch.core.config import load_config, save_config
+from tvc_torch.metrics.fvd import FVDMetric
 from tvc_torch.metrics import rd
 from tvc_torch.parallel.mesh import partition_work
 from tvc_torch.pipeline import driver
@@ -181,12 +186,13 @@ def test_drivers_write_the_jax_layout(pipelines, tmp_path, mode):
     common = dict(start_idx=0, end_idx=1, qualities=[0], thresholds=SWEEP_THRESHOLDS)
     if mode == "sequential":
         got = driver.run_sweep(cfg, data, {0: coder}, pred, str(tmp_path / "port"),
-                               lpips_metric=lp, **common)
+                               with_fvd=False, lpips_metric=lp, **common)
         want = jdriver.run_sweep(jcfg, data, {0: jcoder}, jpred, str(tmp_path / "jax"),
                                  with_fvd=False, lpips_metric=jlp, **common)
     else:
         got = driver.run_sweep_batched(cfg, data, {0: coder}, pred, str(tmp_path / "port"),
-                                       batch_size=2, lpips_metric=lp, **common)
+                                       batch_size=2, with_fvd=False, lpips_metric=lp,
+                                       **common)
         want = jdriver.run_sweep_batched(jcfg, data, {0: jcoder}, jpred, str(tmp_path / "jax"),
                                          batch_size=2, with_fvd=False, lpips_metric=jlp,
                                          **common)
@@ -199,6 +205,67 @@ def test_drivers_write_the_jax_layout(pipelines, tmp_path, mode):
         assert [p["d"] for p in pts] == [p.d for p in got[vid]]
     with pytest.raises(NotImplementedError, match="A10"):
         driver.run_sweep_queued(cfg, data, {0: coder}, pred, str(tmp_path), str(tmp_path / "q"))
+
+
+@pytest.mark.parametrize("mode", ["sequential", "batched"])
+def test_drivers_build_an_fvd_metric_by_default(pipelines, tmp_path, monkeypatch, mode):
+    """Without an FVD metric both drivers build one on the predictor's device
+    and write its value for each point, given the GOP and the ground truth
+    each repeated to a batch of two; ``with_fvd=False`` writes none."""
+    cfg, pred, coder, lp = pipelines[0]
+    calls, built = [], []
+
+    class RecordingFVD:
+        def __init__(self, device="cuda"):
+            built.append(device)
+
+        def __call__(self, v1, v2):
+            calls.append((v1, v2))
+            return float(np.abs(v1 - v2).mean())
+
+    monkeypatch.setattr(driver, "FVDMetric", RecordingFVD)
+    data = smooth_video(n=T)[None]
+    run = driver.run_sweep if mode == "sequential" else functools.partial(
+        driver.run_sweep_batched, batch_size=2)
+    got = run(cfg, data, {0: coder}, pred, str(tmp_path / "out"), qualities=[0],
+              thresholds=[THRESHOLDS[0]], lpips_metric=lp)
+    assert built == [pred.device] and len(calls) == len(got[0]) == 1
+    v1, v2 = calls[0]
+    assert v1.shape == v2.shape == (2, T, 64, 64, 3)
+    assert np.array_equal(v1[0], v1[1]) and np.array_equal(v2[0], data[0]) and \
+        np.array_equal(v2[1], data[0])
+    pts = json.loads((tmp_path / "out" / "output_0" / "points.json").read_text())
+    assert pts[0]["fvd"] == got[0][0].fvd == float(np.abs(v1 - v2).mean()) > 0
+    got = run(cfg, data, {0: coder}, pred, str(tmp_path / "none"), qualities=[0],
+              thresholds=[THRESHOLDS[0]], lpips_metric=lp, with_fvd=False)
+    assert np.isnan(got[0][0].fvd) and len(built) == 1
+
+
+def test_run_sweep_with_fvd_matches_jax(pipelines, tmp_path, monkeypatch):
+    """A 10-frame GOP (the I3D needs 9) at one threshold, JAX's noise handed
+    to the port's point; FVD in the sweep's repeated-pair form."""
+    (cfg, pred, coder, lp), (jcfg, jpred, jcoder, jlp) = pipelines
+    data = smooth_video(n=10)[None]
+    i3d = _random_i3d(8)
+    subs = _point_keys(jax.random.PRNGKey(jcfg.seed), 1)
+    monkeypatch.setattr(driver, "rate_sweep", functools.partial(
+        rate_sweep, noise=lambda k: jax_noise(subs[k], pred)))
+    common = dict(qualities=[0], thresholds=[THRESHOLDS[0]])
+    got = driver.run_sweep(cfg, data, {0: coder}, pred, str(tmp_path / "port"), lpips_metric=lp,
+                           fvd_metric=FVDMetric(_np_sd_tensors(i3d), device="cpu"), **common)
+    want = jdriver.run_sweep(jcfg, data, {0: jcoder}, jpred, str(tmp_path / "jax"),
+                             lpips_metric=jlp, fvd_metric=_JaxFVD(_jax_i3d_params(i3d)),
+                             **common)
+    pts = json.loads((tmp_path / "port" / "output_0" / "points.json").read_text())
+    jpts = json.loads((tmp_path / "jax" / "output_0" / "points.json").read_text())
+    assert len(pts) == len(jpts) == 1 and pts[0]["d"] == jpts[0]["d"] == [1, 1] + [0] * 8
+    assert pts[0]["bpp"] == jpts[0]["bpp"] and jpts[0]["fvd"] > 0
+    assert abs(pts[0]["fvd"] - jpts[0]["fvd"]) <= 1e-4 * jpts[0]["fvd"]
+    assert got[0][0].fvd == pts[0]["fvd"] and want[0][0].fvd == jpts[0]["fvd"]
+    fvd_npy = np.load(tmp_path / "port" / "output_0" / "fvd_0.npy")
+    np.testing.assert_allclose(fvd_npy, np.load(tmp_path / "jax" / "output_0" / "fvd_0.npy"),
+                               rtol=1e-4, atol=0)
+    assert fvd_npy[1, 0] == pts[0]["fvd"]
 
 
 # ------------------------------------------------------------- the CLI
@@ -215,9 +282,9 @@ def _dataset(path, n_frames=T):
     (["--fused-gop", "--batched", "2"], "out", "sequential-mode only"),
     (["--fused-gop", "--queue-dir", "q"], "out", "sequential-mode only"),
     (["--device-gop", "--batched", "2"], "out", "drop --batched"),
-    ([], "err", "A11"),
+    ([], "err", "FVD I3D (--i3d-ckpt)"),
     (["--no-fvd", "--queue-dir", "q"], "err", "A10"),
-    (["--no-fvd", "--i3d-ckpt", "i3d.pt"], "err", "A11"),
+    (["--i3d-ckpt", "missing.pt"], "err", "no such checkpoint: missing.pt"),
     (["--no-fvd", "--queue-stale-after", "60"], "err", "A10"),
     (["--no-fvd"], "err", "--allow-uncalibrated"),
 ])

@@ -6,8 +6,11 @@ and so on). It imports ``torch`` and never ``jax`` or ``tvc``.
 
 It covers the main path: the ELIC keyframe codec with its rANS entropy
 coders, the NCSN++ UNet, the DDPM sampler, the frame predictor,
-LPIPS(alex)/PSNR, the sender's accept decision, the GOP loop, the receiver
-and the ``codec``/``gop`` command line (``python -m tvc_torch.cli``). The
+LPIPS(alex)/PSNR, the sender's accept decision, the GOP loop, the receiver,
+the serving runners and the rate sweep; and the evaluation path: FVD (I3D),
+SSIM, the VGG/SqueezeNet LPIPS, FID/PR (InceptionV3) and the H.264/H.265
+anchors. The command line is ``python -m tvc_torch.cli`` (``sweep``,
+``codec``, ``gop``, ``anchors``). The
 multi-head attention of every ``AttnBlockpp`` runs a CUDA kernel written for
 ``sm_90a`` (``tvc_torch/csrc/attention.cu``); the rANS coder is host C++.
 

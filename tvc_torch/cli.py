@@ -1,8 +1,8 @@
 """tvc_torch command-line interface (counterpart of ``tvc/cli.py``'s ``sweep``,
-``codec`` and ``gop``).
+``codec``, ``gop`` and ``anchors``).
 
-    python -m tvc_torch.cli sweep --data-npy data.npy --output-path out --no-fvd \
-        --qualities 4 5 --batched 8                 # rate sweep: points, envelopes, plots
+    python -m tvc_torch.cli sweep --data-npy data.npy --output-path out \
+        --i3d-ckpt i3d.pt --qualities 4 5 --batched 8   # rate sweep: points, envelopes, plots
     python -m tvc_torch.cli codec --input-npy frames.npy --save-bitstream x.tvc \
         --output-npy sender.npy                      # encode, write a TVC2 container
     python -m tvc_torch.cli codec --from-bitstream x.tvc --input-npy frames.npy \
@@ -11,6 +11,8 @@
     python -m tvc_torch.cli gop send --video-npy video.npy --payload gop.tvcg \
         --threshold 0.1 --allow-uncalibrated --output-npy sender.npy [--device-gop]
     python -m tvc_torch.cli gop receive --payload gop.tvcg --output-npy receiver.npy
+    python -m tvc_torch.cli anchors --data-npy data.npy --output out --preset city \
+        --metrics --allow-uncalibrated             # H.264/H.265 anchors (needs ffmpeg)
 
 Every command runs on ``--device`` (``cuda`` by default; ``cpu`` on a host
 without a card). Configuration: ``--config`` YAML and ``--config-mod
@@ -27,7 +29,9 @@ and the sender's numerics stamp (``tvc_torch.core.runtime.numerics_stamp``).
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+import tempfile
 import time
 from typing import Dict, List, Optional
 
@@ -293,9 +297,10 @@ def cmd_sweep(argv: List[str]) -> int:
                     help="accept rule: LPIPS <= rho or PSNR >= rho in dB (give matching "
                          "--thresholds for psnr, e.g. 30 28 26)")
     ap.add_argument("--no-fvd", action="store_true",
-                    help="no FVD (required: FVD is not ported, ROADMAP.md A11)")
+                    help="skip FVD (default: every point's FVD, computed on --device)")
     ap.add_argument("--i3d-ckpt", type=str, default=None,
-                    help="I3D weights for FVD (not ported, ROADMAP.md A11)")
+                    help="I3D weights for FVD: a pytorch_i3d state dict saved by torch.save "
+                         "(.pt); without it the I3D takes seeded random weights")
     ap.add_argument("--lpips-alex", type=str, default=None, help="torchvision alexnet .pth")
     ap.add_argument("--lpips-lin", type=str, default=None, help="lpips linear heads .pth")
     ap.add_argument("--bench-264", type=str, default=None)
@@ -319,8 +324,8 @@ def cmd_sweep(argv: List[str]) -> int:
     ap.add_argument("--queue-stale-after", type=float, default=None,
                     help="the work queue's lease (not ported, ROADMAP.md A10)")
     ap.add_argument("--allow-uncalibrated", action="store_true",
-                    help="run on random LPIPS weights; RD curves are then meaningless, and "
-                         "config.yml says provenance.calibrated=false")
+                    help="run on random LPIPS or I3D weights; RD curves are then meaningless, "
+                         "and config.yml says provenance.calibrated=false")
     args = ap.parse_args(argv)
 
     if args.fused_gop and (args.batched or args.queue_dir):
@@ -330,17 +335,12 @@ def cmd_sweep(argv: List[str]) -> int:
     if args.device_gop and args.batched:
         print("[tvc_torch] --device-gop runs GOP chains one at a time; drop --batched")
         return 2
-    if not args.no_fvd or args.i3d_ckpt:
-        print("[tvc_torch] ERROR: FVD is not ported (I3D, ROADMAP.md A11); pass --no-fvd "
-              "and no --i3d-ckpt", file=sys.stderr)
-        return 2
     if args.queue_dir or args.queue_stale_after is not None:
         print("[tvc_torch] ERROR: --queue-dir and --queue-stale-after need the work queue, "
               "not ported (ROADMAP.md A10); use --num-processes/--process-id with --batched",
               file=sys.stderr)
         return 2
 
-    from tvc_torch.metrics.lpips import LPIPSMetric
     from tvc_torch.pipeline.driver import load_dataset, run_sweep, run_sweep_batched
 
     cfg = _load_cfg(args)
@@ -348,25 +348,18 @@ def cmd_sweep(argv: List[str]) -> int:
         cfg.codec.exact_streams = False
         print("[tvc_torch] codec path: the simulation coder (--sim-codec); its streams are not "
               "receiver-decodable")
-    lp = LPIPSMetric.create(args.lpips_alex, args.lpips_lin, device=args.device)
-    if not lp.calibrated:
-        if not args.allow_uncalibrated:
-            print("[tvc_torch] ERROR: missing metric weights: LPIPS (--lpips-alex/--lpips-lin); "
-                  "accept decisions would use random features. Pass --allow-uncalibrated to "
-                  "run anyway (stamped into provenance).", file=sys.stderr)
-            return 2
-        print("[tvc_torch] WARNING: running UNCALIBRATED (LPIPS); RD outputs are not "
-              "meaningful", flush=True)
-    provenance = {"calibrated": lp.calibrated, "lpips_calibrated": lp.calibrated,
-                  "fvd_calibrated": True}  # --no-fvd: FVD is not used
+    metrics = build_metrics(args, with_fvd=not args.no_fvd)
+    if metrics is None:
+        return 2
+    lp, fvd, provenance = metrics
 
     data = load_dataset(args.data_npy)
     coders = {q: build_coder(cfg, args.device, args.codec_ckpts[q] if args.codec_ckpts else None,
                              seed=q) for q in args.qualities}
     predictor = build_predictor(cfg, args.device, args.ckpt)
     common = dict(start_idx=args.start_idx, end_idx=args.end_idx, qualities=args.qualities,
-                  thresholds=args.thresholds, lpips_metric=lp, provenance=provenance,
-                  use_psnr=args.decision == "psnr")
+                  thresholds=args.thresholds, with_fvd=not args.no_fvd, lpips_metric=lp,
+                  fvd_metric=fvd, provenance=provenance, use_psnr=args.decision == "psnr")
     if args.batched > 0:
         run_sweep_batched(cfg, data, coders, predictor, args.output_path,
                           batch_size=args.batched, num_processes=args.num_processes,
@@ -381,9 +374,115 @@ def cmd_sweep(argv: List[str]) -> int:
     return 0
 
 
+def build_metrics(args, with_fvd: bool):
+    """(LPIPS, FVD or None, provenance) from ``--lpips-alex/--lpips-lin`` and
+    ``--i3d-ckpt`` on ``--device``; None (after saying why on stderr) when a
+    checkpoint is missing, or when weights are random and
+    ``--allow-uncalibrated`` was not given."""
+    from tvc_torch.metrics.fvd import FVDMetric
+    from tvc_torch.metrics.lpips import LPIPSMetric
+
+    for path in (args.lpips_alex, args.lpips_lin, args.i3d_ckpt if with_fvd else None):
+        if path and not os.path.isfile(path):
+            print(f"[tvc_torch] ERROR: no such checkpoint: {path}", file=sys.stderr)
+            return None
+    lp = LPIPSMetric.create(args.lpips_alex, args.lpips_lin, device=args.device)
+    fvd = None
+    if with_fvd:
+        sd = torch.load(args.i3d_ckpt, map_location="cpu", weights_only=True) \
+            if args.i3d_ckpt else None
+        fvd = FVDMetric(sd, device=args.device)
+    fvd_calibrated = fvd is None or fvd.calibrated
+    calibrated = lp.calibrated and fvd_calibrated
+    if not calibrated:
+        missing = ([] if lp.calibrated else ["LPIPS (--lpips-alex/--lpips-lin)"]) + \
+                  ([] if fvd_calibrated else ["FVD I3D (--i3d-ckpt)"])
+        if not args.allow_uncalibrated:
+            print("[tvc_torch] ERROR: missing metric weights: " + ", ".join(missing)
+                  + "; decisions and metrics would use random features. Pass "
+                    "--allow-uncalibrated to run anyway (stamped into provenance).",
+                  file=sys.stderr)
+            return None
+        print("[tvc_torch] WARNING: running UNCALIBRATED (" + ", ".join(missing)
+              + "); RD outputs are not meaningful", flush=True)
+    provenance = {"calibrated": calibrated, "lpips_calibrated": lp.calibrated,
+                  "fvd_calibrated": fvd_calibrated}
+    return lp, fvd, provenance
+
+
+def cmd_anchors(argv: List[str]) -> int:
+    """H.264/H.265 anchors of a dataset through ffmpeg: (videos, [psnr, lpips,
+    fvd, bpp], n_qp) arrays, per preset or for one codec."""
+    ap = argparse.ArgumentParser(prog="tvc_torch anchors")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu, for --metrics")
+    ap.add_argument("--data-npy", required=True, help="(B,T,C,H,W) dataset npy in [0, 255]")
+    ap.add_argument("--output", required=True,
+                    help="output .npy path, or with --preset the output directory")
+    ap.add_argument("--workdir", default=None,
+                    help="directory for the yuv and mp4 files (default: a temporary one)")
+    ap.add_argument("--preset", choices=["city", "uvg", "smm"], default=None,
+                    help="a dataset's sweep (codecs, pix_fmt, frame count, names): writes "
+                         "bench_<preset>_26{4,5}.npy, a txt per video and an averaged-curve "
+                         "plot into --output")
+    ap.add_argument("--codec", choices=["libx264", "libx265"], default="libx264")
+    ap.add_argument("--qp-min", type=int, default=0)
+    ap.add_argument("--qp-max", type=int, default=51)
+    ap.add_argument("--start-idx", type=int, default=0)
+    ap.add_argument("--end-idx", type=int, default=0)
+    ap.add_argument("--metrics", action="store_true",
+                    help="compute the LPIPS and FVD rows on --device (default: NaN rows)")
+    ap.add_argument("--lpips-alex", type=str, default=None, help="torchvision alexnet .pth")
+    ap.add_argument("--lpips-lin", type=str, default=None, help="lpips linear heads .pth")
+    ap.add_argument("--i3d-ckpt", type=str, default=None, help="pytorch_i3d state dict (.pt)")
+    ap.add_argument("--allow-uncalibrated", action="store_true",
+                    help="with --metrics, run on random LPIPS or I3D weights")
+    args = ap.parse_args(argv)
+
+    from tvc_torch.bench.anchors import build_anchor_array, have_ffmpeg
+    from tvc_torch.pipeline.driver import load_dataset
+
+    if not have_ffmpeg():
+        print("ffmpeg not available; the anchor harness requires it", file=sys.stderr)
+        return 2
+    lp = fvd = None
+    if args.metrics:
+        metrics = build_metrics(args, with_fvd=True)
+        if metrics is None:
+            return 2
+        lp, fvd, _ = metrics
+    qps = range(args.qp_min, args.qp_max + 1)
+    data = load_dataset(args.data_npy)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = args.workdir or tmp
+        if args.preset:
+            from tvc_torch.bench.presets import PRESETS, plot_average_curves, run_preset
+
+            preset = PRESETS[args.preset]
+            if args.end_idx > 0:
+                data = data[args.start_idx: args.end_idx + 1]
+            arrays = run_preset(preset, data, workdir, args.output, lpips_metric=lp,
+                                fvd_metric=fvd, qp_range=qps)
+            try:
+                plot_average_curves(
+                    os.path.join(args.output, f"bench_{preset.name}_avg.png"),
+                    anchors_264=arrays.get("libx264"), anchors_265=arrays.get("libx265"),
+                    title=f"{preset.name} anchors")
+            except ImportError:
+                print("skipped the plot (matplotlib is not installed)")
+            print(f"preset {preset.name}: wrote {sorted(os.listdir(args.output))} -> "
+                  f"{args.output} in {time.perf_counter() - t0:.6f} s", flush=True)
+            return 0
+        arr = build_anchor_array(data[args.start_idx: args.end_idx + 1], workdir, args.codec,
+                                 qps, lpips_metric=lp, fvd_metric=fvd)
+    np.save(args.output, arr)
+    print(f"saved {arr.shape} -> {args.output} in {time.perf_counter() - t0:.6f} s", flush=True)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    cmds = {"sweep": cmd_sweep, "codec": cmd_codec, "gop": cmd_gop}
+    cmds = {"sweep": cmd_sweep, "codec": cmd_codec, "gop": cmd_gop, "anchors": cmd_anchors}
     if not argv or argv[0] not in cmds:
         print(f"usage: python -m tvc_torch.cli {{{','.join(cmds)}}} ...")
         return 0 if argv and argv[0] in ("-h", "--help") else 1

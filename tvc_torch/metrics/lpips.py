@@ -1,10 +1,12 @@
-"""LPIPS(alex) perceptual distance (counterpart of ``tvc/metrics/lpips.py``).
+"""LPIPS perceptual distance (counterpart of ``tvc/metrics/lpips.py``).
 
-torchvision's AlexNet ``features`` trunk (five ReLU taps, VALID 3x3/2 max
-pooling) and the learned linear heads of the net-lin LPIPS. The public
-functions take NHWC tensors, as the JAX package does. The numerics follow
-it: ImageNet shift/scale, unit-normalising each tap with the eps outside the
-square root (``x / (||x||_2 + 1e-10)``), heads clamped at zero, spatial mean.
+The net-lin LPIPS over one of three trunks: torchvision's AlexNet
+``features`` (five ReLU taps, VALID 3x3/2 max pooling; the sender's
+decision runs on it), VGG16 or SqueezeNet 1.1 (``tvc_torch/metrics/
+backbones.py``), and the learned linear heads. The public functions take
+NHWC tensors, as the JAX package does. The numerics follow it: ImageNet
+shift/scale, unit-normalising each tap with the eps outside the square root
+(``x / (||x||_2 + 1e-10)``), heads clamped at zero, spatial mean.
 
 The sender feeds [0, 1] frames straight in, without rescaling to [-1, 1]
 (a reference quirk the JAX package keeps). Weights come from local ``.pth``
@@ -22,6 +24,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from tvc_torch.core.runtime import resolve_device, to_tensor
+from tvc_torch.metrics.backbones import (
+    SQUEEZE_TAPS,
+    VGG_TAPS,
+    SqueezeNetFeatures,
+    VGG16Features,
+)
 
 _SHIFT = (-0.030, -0.088, -0.188)
 _SCALE = (0.458, 0.448, 0.450)
@@ -57,13 +65,25 @@ class AlexNetFeatures(nn.Module):
         return taps
 
 
-class LPIPS(nn.Module):
-    """net-lin LPIPS(alex) distance between two NHWC batches; returns (B,)."""
+def _make_backbone(net_type: str, device):
+    if net_type == "alex":
+        return AlexNetFeatures(device=device), ALEX_TAPS
+    if net_type == "vgg":
+        return VGG16Features(device=device), VGG_TAPS
+    if net_type == "squeeze":
+        return SqueezeNetFeatures(device=device), SQUEEZE_TAPS
+    raise ValueError(f"unknown LPIPS net: {net_type}")
 
-    def __init__(self, device=None):
+
+class LPIPS(nn.Module):
+    """net-lin LPIPS distance between two NHWC batches; returns (B,).
+    ``net_type``: alex | vgg | squeeze."""
+
+    def __init__(self, device=None, net_type: str = "alex"):
         super().__init__()
-        self.net = AlexNetFeatures(device=device)
-        for k, c in enumerate(ALEX_TAPS):
+        self.net_type = net_type
+        self.net, self.taps = _make_backbone(net_type, device)
+        for k, c in enumerate(self.taps):
             self.register_parameter(f"lin{k}", nn.Parameter(torch.full((1, c, 1, 1), 0.1,
                                                                        device=device)))
         self.register_buffer("shift", torch.tensor(_SHIFT, device=device).view(1, 3, 1, 1),
@@ -75,14 +95,13 @@ class LPIPS(nn.Module):
         """Random weights as the JAX package draws them: LeCun-normal convs,
         zero biases, heads at 0.1."""
         with torch.no_grad():
-            for conv in (self.net.conv0, self.net.conv1, self.net.conv2, self.net.conv3,
-                         self.net.conv4):
+            for conv in [m for m in self.net.modules() if isinstance(m, nn.Conv2d)]:
                 fan_in = conv.weight[0].numel()
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 nn.init.trunc_normal_(conv.weight, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
                 conv.bias.zero_()
-            for k in range(len(ALEX_TAPS)):
+            for k in range(len(self.taps)):
                 getattr(self, f"lin{k}").fill_(0.1)
 
     def forward(self, x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
@@ -99,7 +118,7 @@ class LPIPS(nn.Module):
 
 
 class LPIPSMetric:
-    """An LPIPS(alex) model on a device. ``calibrated`` is False on random weights."""
+    """An LPIPS model on a device. ``calibrated`` is False on random weights."""
 
     def __init__(self, model: LPIPS, calibrated: bool):
         self.model = model.eval()
@@ -113,9 +132,9 @@ class LPIPSMetric:
 
     @classmethod
     def create(cls, alex_pth: Optional[str] = None, lin_pth: Optional[str] = None,
-               seed: int = 0, device="cuda") -> "LPIPSMetric":
+               seed: int = 0, device="cuda", net_type: str = "alex") -> "LPIPSMetric":
         dev = resolve_device(device)
-        model = LPIPS(device="cpu")
+        model = LPIPS(device="cpu", net_type=net_type)
         model.init_weights(torch.Generator().manual_seed(seed))
         calibrated = False
         if alex_pth is not None or lin_pth is not None:
@@ -125,21 +144,32 @@ class LPIPSMetric:
 
 def load_lpips_weights(model: LPIPS, alex_pth: Optional[str],
                        lin_pth: Optional[str]) -> bool:
-    """Load torchvision AlexNet (``features.{i}.*``) and LPIPS head
-    (``lin{k}.model.1.weight``) state dicts from local files into ``model``.
-    Returns whether the metric is calibrated (both files given)."""
+    """Load a torchvision backbone state dict (alexnet, vgg16 or
+    squeezenet1_1, as ``model.net_type`` says; its ``features.*`` entries) and
+    the LPIPS heads (``lin{k}.model.1.weight``) from local files into
+    ``model``. Returns whether the metric is calibrated (both files given)."""
     with torch.no_grad():
         if alex_pth is not None:
             sd = torch.load(alex_pth, map_location="cpu", weights_only=True)
-            for i, cid in enumerate(_ALEX_CONV_IDS):
-                conv = getattr(model.net, f"conv{i}")
-                conv.weight.copy_(sd[f"features.{cid}.weight"])
-                conv.bias.copy_(sd[f"features.{cid}.bias"])
+            if model.net_type == "alex":
+                for i, cid in enumerate(_ALEX_CONV_IDS):
+                    conv = getattr(model.net, f"conv{i}")
+                    conv.weight.copy_(sd[f"features.{cid}.weight"])
+                    conv.bias.copy_(sd[f"features.{cid}.bias"])
+            else:
+                model.net.load_state_dict({k: v for k, v in sd.items()
+                                           if k.startswith("features.")}, strict=True)
         if lin_pth is not None:
             sd = torch.load(lin_pth, map_location="cpu", weights_only=True)
-            for k in range(len(ALEX_TAPS)):
+            for k in range(len(model.taps)):
                 key = f"lin{k}.model.1.weight"
                 if key not in sd:  # older layouts
                     key = f"lin{k}.weight"
                 getattr(model, f"lin{k}").copy_(sd[key])
     return alex_pth is not None and lin_pth is not None
+
+
+def lpips_video(metric: LPIPSMetric, video1, video2) -> List[float]:
+    """Per-frame LPIPS of two (T, H, W, C) videos in [0, 1], fed in unscaled
+    as the sender feeds its frames."""
+    return [float(v) for v in metric(video1, video2).cpu().numpy()]

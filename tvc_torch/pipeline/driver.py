@@ -5,6 +5,11 @@ Load a dataset npy ((B, T, C, H, W) in [0, 255]); for each video run the
 the envelopes as npy files and the plots under ``output_{vid}``, and the run's
 config (with its provenance) as ``config.yml``.
 
+With ``with_fvd`` (the default) each point's FVD is computed on the
+predictor's device by an ``FVDMetric`` (built on seeded random I3D weights
+where none is given), between the decoded GOP and the ground truth, each
+repeated to a batch of two.
+
 Several processes split the work statically with ``partition_work``; the
 queue-driven sweep (``run_sweep_queued``) is item A10 of ROADMAP.md.
 """
@@ -21,6 +26,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from tvc_torch.core.config import Config, save_config
+from tvc_torch.metrics.fvd import FVDMetric
 from tvc_torch.metrics.lpips import LPIPSMetric
 from tvc_torch.metrics.pixel import psnr
 from tvc_torch.metrics.rd import process_data_and_save
@@ -60,11 +66,20 @@ def _gop_frames(data: np.ndarray) -> int:
     return min(30, data.shape[1])
 
 
+def _fvd(with_fvd: bool, fvd_metric: Optional[Callable],
+         predictor: FramePredictor) -> Optional[Callable]:
+    """The sweep's FVD metric: the one given, else a seeded random-weight
+    ``FVDMetric`` on the predictor's device; None without ``with_fvd``."""
+    if not with_fvd:
+        return None
+    return fvd_metric if fvd_metric is not None else FVDMetric(device=predictor.device)
+
+
 def run_sweep_batched(cfg: Config, data: np.ndarray, coders: Dict[int, object],
                       predictor: FramePredictor, output_path: str, start_idx: int = 0,
                       end_idx: int = 0, qualities: Sequence[int] = (4, 5),
                       thresholds: Optional[Sequence[float]] = None, batch_size: int = 8,
-                      lpips_metric: Optional[LPIPSMetric] = None,
+                      with_fvd: bool = True, lpips_metric: Optional[LPIPSMetric] = None,
                       fvd_metric: Optional[Callable] = None, bpp_stop: float = 1.0,
                       num_processes: int = 1, process_id: int = 0,
                       provenance: Optional[dict] = None,
@@ -76,6 +91,7 @@ def run_sweep_batched(cfg: Config, data: np.ndarray, coders: Dict[int, object],
     thresholds = sorted(default_thresholds() if thresholds is None else thresholds,
                         reverse=not use_psnr)
     lpips_metric = lpips_metric or LPIPSMetric.create(device=predictor.device)
+    fvd_metric = _fvd(with_fvd, fvd_metric, predictor)
     walks_meta = partition_work([(vid, int(q)) for vid in range(start_idx, end_idx + 1)
                                  for q in qualities], num_processes, process_id)
     n_frames = _gop_frames(data)
@@ -115,7 +131,8 @@ def run_sweep_batched(cfg: Config, data: np.ndarray, coders: Dict[int, object],
 def run_sweep(cfg: Config, data: np.ndarray, coders: Dict[int, object],
               predictor: FramePredictor, output_path: str, start_idx: int = 0, end_idx: int = 0,
               qualities: Sequence[int] = (4, 5), thresholds: Optional[Sequence[float]] = None,
-              lpips_metric: Optional[LPIPSMetric] = None, fvd_metric: Optional[Callable] = None,
+              with_fvd: bool = True, lpips_metric: Optional[LPIPSMetric] = None,
+              fvd_metric: Optional[Callable] = None,
               save_artifacts: bool = True, bench_264: Optional[str] = None,
               bench_265: Optional[str] = None, fused_gop: bool = False,
               device_gop: bool = False, provenance: Optional[dict] = None,
@@ -129,6 +146,7 @@ def run_sweep(cfg: Config, data: np.ndarray, coders: Dict[int, object],
     save_config(cfg, os.path.join(output_path, "config.yml"),
                 extra={"provenance": provenance} if provenance else None)
     lpips_metric = lpips_metric or LPIPSMetric.create(device=predictor.device)
+    fvd_metric = _fvd(with_fvd, fvd_metric, predictor)
     n_frames = _gop_frames(data)
     fused = device_runner = None
     if fused_gop:

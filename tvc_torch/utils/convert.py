@@ -14,7 +14,10 @@ The port's UNet names its parameters with the reference's ``all_modules``
 keys, so a reference ``checkpoint_*.pt`` loads with ``load_diffusion_checkpoint``
 and no conversion of layouts. The ELIC codec likewise: ``elic_from_jax`` maps
 a JAX ``ELICModel`` tree onto the reference's keys, and
-``load_codec_checkpoint`` reads a reference ``*.pth.tar``.
+``load_codec_checkpoint`` reads a reference ``*.pth.tar``. The evaluation
+networks name theirs after pytorch_i3d's and torchvision's keys:
+``i3d_from_jax``, ``inception_from_jax``, ``vgg16_from_jax`` and
+``squeezenet_from_jax`` map the JAX trees onto them.
 """
 
 from __future__ import annotations
@@ -72,14 +75,103 @@ def unet_from_jax(cfg: Config, np_params: Dict[str, Any]) -> Dict[str, torch.Ten
     return state_dict_from_jax(np_params["params"]["unet"], "unet.")
 
 
-def lpips_from_jax(np_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The JAX LPIPS(alex) ``params`` tree (``net/conv{i}``, ``lin{k}`` as
-    (1, 1, C, 1)) -> the port's ``LPIPS`` state dict (``lin{k}`` as (1, C, 1, 1))."""
+def lpips_from_jax(np_params: Dict[str, Any], net_type: str = "alex") -> Dict[str, torch.Tensor]:
+    """The JAX LPIPS ``params`` tree (``net/...``, ``lin{k}`` as (1, 1, C, 1))
+    -> the port's ``LPIPS`` state dict (``lin{k}`` as (1, C, 1, 1)); the
+    backbone's keys as ``net_type`` (alex | vgg | squeeze) names them."""
     params = np_params.get("params", np_params)
-    out = state_dict_from_jax({"net": params["net"]})
+    if net_type == "alex":
+        out = state_dict_from_jax({"net": params["net"]})
+    else:
+        backbone = {"vgg": vgg16_from_jax, "squeeze": squeezenet_from_jax}[net_type]
+        out = {f"net.{k}": v for k, v in backbone(params["net"]).items()}
     for k, v in params.items():
         if k.startswith("lin"):
             out[k] = _tensor(v).permute(3, 2, 0, 1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Evaluation networks: flax conv kernels are (k..., in, out), torch's (out, in, k...)
+# ---------------------------------------------------------------------------
+
+
+def _conv(prefix: str, tree: Dict[str, Any], out: Dict[str, torch.Tensor]) -> None:
+    k = np.asarray(tree["kernel"])
+    out[f"{prefix}.weight"] = _tensor(np.ascontiguousarray(
+        np.moveaxis(k, (-1, -2), (0, 1))))
+    if "bias" in tree:
+        out[f"{prefix}.bias"] = _tensor(tree["bias"])
+
+
+def _bn(prefix: str, tree: Dict[str, Any], out: Dict[str, torch.Tensor]) -> None:
+    for jax_name, name in (("bn_scale", "weight"), ("bn_bias", "bias"),
+                           ("bn_mean", "running_mean"), ("bn_var", "running_var")):
+        out[f"{prefix}.{name}"] = _tensor(tree[jax_name])
+
+
+def i3d_from_jax(np_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``InceptionI3d`` tree (``Unit3D``: ``conv3d/kernel`` (kt, kh, kw,
+    in, out), ``bn_scale``/``bn_bias``/``bn_mean``/``bn_var``) -> the port's
+    ``InceptionI3d`` state dict in pytorch_i3d's keys."""
+    params = np_params.get("params", np_params)
+    out: Dict[str, torch.Tensor] = {}
+
+    def unit(prefix, tree):
+        _conv(f"{prefix}.conv3d", tree["conv3d"], out)
+        if "bn_scale" in tree:
+            _bn(f"{prefix}.bn", tree, out)
+
+    for name, tree in params.items():
+        if name.startswith("Mixed"):
+            for branch, sub in tree.items():
+                unit(f"{name}.{branch}", sub)
+        else:
+            unit(name, tree)
+    return out
+
+
+def inception_from_jax(np_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``InceptionV3Features`` tree -> the port's state dict in
+    torchvision's ``inception_v3`` keys (``BasicConv2d``: ``conv``, ``bn``)."""
+    params = np_params.get("params", np_params)
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix, tree):
+        if "conv" in tree:  # a BasicConv2d
+            _conv(f"{prefix}.conv", tree["conv"], out)
+            _bn(f"{prefix}.bn", tree, out)
+            return
+        for name, sub in tree.items():
+            walk(f"{prefix}.{name}" if prefix else name, sub)
+
+    walk("", params)
+    return out
+
+
+def vgg16_from_jax(np_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``VGG16Features`` tree (``conv{i}``) -> torchvision ``vgg16``
+    ``features.{i}`` keys."""
+    from tvc_torch.metrics.backbones import VGG_CONV_IDS
+
+    params = np_params.get("params", np_params)
+    out: Dict[str, torch.Tensor] = {}
+    for i, cid in enumerate(VGG_CONV_IDS):
+        _conv(f"features.{cid}", params[f"conv{i}"], out)
+    return out
+
+
+def squeezenet_from_jax(np_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``SqueezeNetFeatures`` tree (``conv0``, ``fire{i}``) ->
+    torchvision ``squeezenet1_1`` ``features.{i}`` keys."""
+    from tvc_torch.metrics.backbones import SQUEEZE_FIRE
+
+    params = np_params.get("params", np_params)
+    out: Dict[str, torch.Tensor] = {}
+    _conv("features.0", params["conv0"], out)
+    for i in SQUEEZE_FIRE:
+        for part in ("squeeze", "expand1x1", "expand3x3"):
+            _conv(f"features.{i}.{part}", params[f"fire{i}"][part], out)
     return out
 
 
