@@ -196,7 +196,8 @@ def test_cli_anchors_exits_2_without_ffmpeg(monkeypatch, tmp_path, capsys):
 def test_cli_anchors_preset_matches_jax(fake_ffmpeg, tmp_path):
     data = _dataset(tmp_path / "d.npy", n_videos=2)
     rc = cli.main(["anchors", "--data-npy", data, "--output", str(tmp_path / "out"),
-                   "--preset", "smm", "--qp-min", "30", "--qp-max", "31", "--device", "cpu"])
+                   "--preset", "smm", "--qp-min", "30", "--qp-max", "31", "--device", "cpu",
+                   "--no-metrics"])
     assert rc == 0
     from tvc.pipeline.driver import load_dataset as j_load_dataset
 
@@ -204,13 +205,13 @@ def test_cli_anchors_preset_matches_jax(fake_ffmpeg, tmp_path):
                                str(tmp_path / "jw"), str(tmp_path / "jax"), qp_range=range(30, 32))
     got = np.load(tmp_path / "out" / "bench_smm_265.npy")
     np.testing.assert_array_equal(got, want["libx265"])
-    assert got.shape == (2, 4, 2) and np.all(np.isnan(got[:, 1:3]))  # no --metrics
+    assert got.shape == (2, 4, 2) and np.all(np.isnan(got[:, 1:3]))  # --no-metrics
 
 
 def test_cli_anchors_metrics(fake_ffmpeg, tmp_path, capsys):
     data = _dataset(tmp_path / "d.npy", frames=10, size=32)
     args = ["anchors", "--data-npy", data, "--output", str(tmp_path / "a.npy"), "--qp-min", "20",
-            "--qp-max", "20", "--device", "cpu", "--metrics"]
+            "--qp-max", "20", "--device", "cpu"]
     assert cli.main(args) == 2  # random LPIPS and I3D weights need --allow-uncalibrated
     assert "FVD I3D (--i3d-ckpt)" in capsys.readouterr().err
     i3d = tmp_path / "i3d.pt"

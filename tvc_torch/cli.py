@@ -12,7 +12,7 @@
         --threshold 0.1 --allow-uncalibrated --output-npy sender.npy [--device-gop]
     python -m tvc_torch.cli gop receive --payload gop.tvcg --output-npy receiver.npy
     python -m tvc_torch.cli anchors --data-npy data.npy --output out --preset city \
-        --metrics --allow-uncalibrated             # H.264/H.265 anchors (needs ffmpeg)
+        --i3d-ckpt i3d.pt                          # H.264/H.265 anchors (needs ffmpeg)
 
 Every command runs on ``--device`` (``cuda`` by default; ``cpu`` on a host
 without a card). Configuration: ``--config`` YAML and ``--config-mod
@@ -371,6 +371,9 @@ def cmd_sweep(argv: List[str]) -> int:
     from tvc_torch.ops import attention
 
     print(f"[sweep] attention kernel launches: {attention.launches}", flush=True)
+    if torch.device(args.device).type == "cuda":
+        print(f"[sweep] peak device memory: {torch.cuda.max_memory_allocated() / 1e9} GB",
+              flush=True)
     return 0
 
 
@@ -414,7 +417,8 @@ def cmd_anchors(argv: List[str]) -> int:
     """H.264/H.265 anchors of a dataset through ffmpeg: (videos, [psnr, lpips,
     fvd, bpp], n_qp) arrays, per preset or for one codec."""
     ap = argparse.ArgumentParser(prog="tvc_torch anchors")
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu, for --metrics")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu, for the LPIPS and FVD rows")
     ap.add_argument("--data-npy", required=True, help="(B,T,C,H,W) dataset npy in [0, 255]")
     ap.add_argument("--output", required=True,
                     help="output .npy path, or with --preset the output directory")
@@ -429,13 +433,13 @@ def cmd_anchors(argv: List[str]) -> int:
     ap.add_argument("--qp-max", type=int, default=51)
     ap.add_argument("--start-idx", type=int, default=0)
     ap.add_argument("--end-idx", type=int, default=0)
-    ap.add_argument("--metrics", action="store_true",
-                    help="compute the LPIPS and FVD rows on --device (default: NaN rows)")
+    ap.add_argument("--no-metrics", action="store_true",
+                    help="skip LPIPS and FVD and write NaN rows (default: both, on --device)")
     ap.add_argument("--lpips-alex", type=str, default=None, help="torchvision alexnet .pth")
     ap.add_argument("--lpips-lin", type=str, default=None, help="lpips linear heads .pth")
     ap.add_argument("--i3d-ckpt", type=str, default=None, help="pytorch_i3d state dict (.pt)")
     ap.add_argument("--allow-uncalibrated", action="store_true",
-                    help="with --metrics, run on random LPIPS or I3D weights")
+                    help="run on random LPIPS or I3D weights")
     args = ap.parse_args(argv)
 
     from tvc_torch.bench.anchors import build_anchor_array, have_ffmpeg
@@ -445,7 +449,7 @@ def cmd_anchors(argv: List[str]) -> int:
         print("ffmpeg not available; the anchor harness requires it", file=sys.stderr)
         return 2
     lp = fvd = None
-    if args.metrics:
+    if not args.no_metrics:
         metrics = build_metrics(args, with_fvd=True)
         if metrics is None:
             return 2

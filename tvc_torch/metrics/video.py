@@ -53,11 +53,11 @@ def calculate_ssim(videos1: np.ndarray, videos2: np.ndarray,
 
 def calculate_lpips(videos1: np.ndarray, videos2: np.ndarray,
                     metric: Optional[LPIPSMetric] = None, calculate_per_frame: int = 1,
-                    calculate_final: bool = True, device="cuda") -> Dict:
-    """Per-frame LPIPS of frames rescaled to [-1, 1], averaged over the batch;
-    ``device`` is used only to build the default metric."""
+                    calculate_final: bool = True) -> Dict:
+    """Per-frame LPIPS of frames rescaled to [-1, 1], averaged over the batch
+    (by default LPIPS(alex) on the card)."""
     assert videos1.shape == videos2.shape
-    metric = metric or LPIPSMetric.create(device=device)
+    metric = metric or LPIPSMetric.create()
     v1 = _to_rgb(np.asarray(videos1)) * 2 - 1
     v2 = _to_rgb(np.asarray(videos2)) * 2 - 1
     vals = [float(np.mean(metric(v1[:, j], v2[:, j]).cpu().numpy()))
@@ -67,11 +67,11 @@ def calculate_lpips(videos1: np.ndarray, videos2: np.ndarray,
 
 def calculate_fvd(videos1: np.ndarray, videos2: np.ndarray,
                   metric: Optional[FVDMetric] = None, calculate_per_frame: int = 10,
-                  calculate_final: bool = True, device="cuda") -> Dict:
+                  calculate_final: bool = True) -> Dict:
     """FVD of clip prefixes of at least 10 frames (shorter prefixes are
-    skipped); ``device`` is used only to build the default metric."""
+    skipped; by default the I3D on the card)."""
     assert videos1.shape == videos2.shape
-    metric = metric or FVDMetric(device=device)
+    metric = metric or FVDMetric()
     v1 = _to_rgb(np.asarray(videos1))
     v2 = _to_rgb(np.asarray(videos2))
     per = {}

@@ -29,13 +29,12 @@ def _keys_cubic(x: np.ndarray) -> np.ndarray:
 KERNELS = {"bilinear": _triangle, "cubic": _keys_cubic}
 
 
-def resize_weights(n_in: int, n_out: int, kernel: str = "bilinear",
-                   antialias: bool = True) -> np.ndarray:
+def resize_weights(n_in: int, n_out: int, kernel: str = "bilinear") -> np.ndarray:
     """(n_in, n_out) float32 weights of one axis, as ``jax.image.resize``
     computes them (``compute_weight_mat``)."""
     f32 = np.float32
     inv_scale = f32(1.0) / f32(n_out / n_in)
-    kernel_scale = max(inv_scale, f32(1.0)) if antialias else f32(1.0)
+    kernel_scale = max(inv_scale, f32(1.0))
     sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.0) * inv_scale \
         - f32(0.5)
     x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
