@@ -2,7 +2,9 @@
 """Drive tvc_torch's main path on one NVIDIA GPU at full width: a whole
 30-frame GOP coded into TVC2 containers and a payload, and rebuilt byte for
 byte by a receiver in a fresh process; then the serving paths, the rate
-sweep and the evaluation path (FVD, LPIPS backbones, FID, the anchors).
+sweep, the evaluation path (FVD, LPIPS backbones, FID, the anchors), and
+the sampler layer (DDIM, F-PNDM, every DDPM option, the Langevin samplers)
+with every prediction replayed as a CUDA graph.
 
     python3 chip_smoke.py
 
@@ -81,8 +83,27 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
     deflate), which the log names loudly; the card's non-zero LPIPS and FVD
     rows must match the CPU's.
 
-Every path above (7, 8, 10-14) must launch the attention kernel 1010 times per
-update or lockstep sweep; the ``kernels`` line sums their launches.
+15. the sampler layer. On the card a predictor's first UNet call at an
+    input signature (batch, shapes, label dtype) runs eagerly, its second
+    captures a CUDA graph of the call, and every one from then on replays it
+    (``tvc_torch/samplers/graph.py``), so phases 5-14 run through graphs.
+    (a) one DDPM update through the graphed UNet against the eager loop at
+    B = 1 and 8, byte for byte, each with its host wall and CUDA-event time,
+    each batch's graph proven to have replayed 101 times in the update, and
+    its capture time and pool; (c) a GOP of 7 frames sent with
+    ``model.version=DDIM`` and one with ``FPNDM`` through their graphs, each
+    rebuilt byte for byte by ``gop receive`` in a fresh process (1010 and
+    1090 launches an update); (d) one update with ``model.gamma=true`` and
+    one with ``sampling.init_prev_t=0.5`` (96 UNet calls, 960 launches: an
+    inactive step makes no UNet call), each rerun from the same generator
+    seed bit-identical and equal to the eager loop; (e) the annealed-Langevin
+    samplers with the full-width UNet as eps_fn on 3 levels of
+    ``get_sigmas(cfg)`` with 2 inner steps: finite, reruns bit-identical, the
+    plain sampler through the graphed UNet equal to its eager loop.
+
+Every path above (7, 8, 10-15) must launch the attention kernel 1010 times per
+DDPM or DDIM update or lockstep sweep (F-PNDM 1090, the warm start 960); the
+``kernels`` line sums their launches.
 
 The last lines are the ``kernels`` JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -475,8 +496,6 @@ def phase_codec(torch, model, video):
 def phase_gop(torch, attn, sender, coder, video, config_mods):
     """Phase 7, the main path: a 30-frame GOP, its payload, and a receiver in a
     fresh process, which is given ``config_mods`` (the sender's config)."""
-    from tvc_torch import cli
-    from tvc_torch.core.runtime import numerics_stamp
     from tvc_torch.pipeline.sender import run_gop
 
     cfg = sender.cfg
@@ -520,10 +539,28 @@ def phase_gop(torch, attn, sender, coder, video, config_mods):
             not np.isfinite(x_ge).all() or x_ge.min() < 0 or x_ge.max() > 1:
         fail(f"the GOP's frames ({x_ge.shape}, {x_ge.dtype}) are not 30 frames in [0, 1]")
 
+    recv = receive_in_fresh_process(gop, cfg, coder, config_mods)
+    log("gop_receiver " + json.dumps(recv))
+    if not recv["byte_identical"]:
+        fail("the receiver's frames differ from the sender's")
+    if 0 not in gop.accepts or max(gop.accepts) == 0:
+        fail(f"accepts {gop.accepts}: the GOP must take an accepted prediction and a fallback "
+             f"pair; move GOP_THRESHOLD ({GOP_THRESHOLD}) between the scores above")
+    return {**row, **recv, "result": gop}
+
+
+def receive_in_fresh_process(gop, cfg, coder, config_mods):
+    """Write ``gop``'s payload as ``gop send`` does, run ``python -m
+    tvc_torch.cli gop receive`` on it in a fresh process with ``config_mods``
+    (the sender's config), and compare its frames with the sender's."""
+    from tvc_torch import cli
+    from tvc_torch.core.runtime import numerics_stamp
+
+    x_ge = gop.x_ge[0]
     with tempfile.TemporaryDirectory() as tmp:
         payload, out = os.path.join(tmp, "gop.tvcg"), os.path.join(tmp, "receiver.npy")
         nbytes = cli.write_payload(payload, gop, cfg.seed, False,
-                                   numerics_stamp(coder.device, coder.entropy_backend))
+                                   numerics_stamp(coder.device, cfg))
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "tvc_torch.cli", "gop", "receive", "--payload", payload,
@@ -536,17 +573,10 @@ def phase_gop(torch, attn, sender, coder, video, config_mods):
             fail(f"the receiver process exited {proc.returncode}")
         m = re.search(r"in ([0-9.]+) s \(models built in ([0-9.]+) s\)", proc.stdout)
         rec = np.load(out)
-    same = rec.dtype == x_ge.dtype and rec.tobytes() == x_ge.tobytes()
-    recv = {"payload_bytes": nbytes, "receiver_wall_s": recv_wall,
+    return {"payload_bytes": nbytes, "receiver_wall_s": recv_wall,
             "receiver_run_s": float(m.group(1)) if m else None,
-            "receiver_models_s": float(m.group(2)) if m else None, "byte_identical": same}
-    log("gop_receiver " + json.dumps(recv))
-    if not same:
-        fail("the receiver's frames differ from the sender's")
-    if 0 not in gop.accepts or max(gop.accepts) == 0:
-        fail(f"accepts {gop.accepts}: the GOP must take an accepted prediction and a fallback "
-             f"pair; move GOP_THRESHOLD ({GOP_THRESHOLD}) between the scores above")
-    return {**row, **recv, "result": gop}
+            "receiver_models_s": float(m.group(2)) if m else None,
+            "byte_identical": rec.dtype == x_ge.dtype and rec.tobytes() == x_ge.tobytes()}
 
 
 SYNC_WARNING = "synchroniz"  # text of the CUDA sync debug mode's warnings
@@ -1141,6 +1171,248 @@ def phase_eval(torch, tmp, video, gop_frames, data, ckpts, i3d_ckpt, config_mods
     return row
 
 
+SAMPLER_FRAMES = 7  # depth of phase 15c's DDIM and F-PNDM GOPs, cut from 30 for time
+LANGEVIN_LEVELS = 3  # phase 15e: levels of get_sigmas(cfg) kept (evenly spaced) ...
+LANGEVIN_STEPS = 2   # ... and inner steps a level
+
+
+def update_times(torch, fn):
+    """(result, host wall s, CUDA-event s) of ``fn()``: the events bracket the
+    work on the stream, so they give the card's time where the host enqueues
+    faster than the card runs (a graph replay) and about the host's where it
+    does not (the eager loop)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+
+
+def eager_generate(predictor, cond_frames, x_init, noise):
+    """``generate``'s work without the graph: every UNet call eager."""
+    import torch
+
+    from tvc_torch.core.runtime import batched_conv_algorithms, to_tensor
+    from tvc_torch.pipeline.transforms import data_transform, inverse_data_transform
+
+    cfg = predictor.cfg
+    b, size, c = cond_frames.shape[0], cfg.data.image_size, cfg.data.channels
+    cond = data_transform(cfg, to_tensor(cond_frames, predictor.device))
+    step, warm = predictor._split(noise)
+    with torch.no_grad(), batched_conv_algorithms(b, predictor.device):
+        out = predictor._sample(x_init, cond, step, warm, eps_fn=predictor.model)
+        out = inverse_data_transform(cfg, out[-1].float())
+    return out.reshape(b, size, size, cfg.data.num_frames, c).permute(0, 3, 1, 2, 4)
+
+
+def sampler_predictor(predictor, **mods):
+    """A predictor on ``predictor``'s UNet with the sampler settings ``mods``
+    (``"model.version": "DDIM"``, ...); returns it and its --config-mod list."""
+    import copy
+
+    from tvc_torch.pipeline.predictor import FramePredictor
+
+    cfg = copy.deepcopy(predictor.cfg)
+    for field, value in mods.items():
+        section, key = field.split(".")
+        setattr(getattr(cfg, section), key, value)
+    return FramePredictor(cfg, predictor.model), [f"{k}={v}" for k, v in mods.items()]
+
+
+def graph_at(predictor, b):
+    """The predictor's one UNet graph at batch ``b``, or None before its capture."""
+    found = [e for key, e in predictor.graphs.entries.items() if key[0][0][0] == b]
+    if len(found) > 1:
+        fail(f"{len(found)} UNet graphs at batch {b}, expected one")
+    return found[0] if found else None
+
+
+def phase_samplers(torch, attn, predictor, coder, lpips, video):
+    """Phase 15: the sampler layer through the graphed UNet. (a) one DDPM
+    update through the graph against the eager loop at B = 1 and 8, byte
+    for byte, with the host wall and the card's time of each, each batch's
+    graph shown to replay every UNet call of the update, its capture time
+    and pool; (c) a DDIM and an F-PNDM GOP of SAMPLER_FRAMES frames through
+    their graphs, each rebuilt byte for byte by ``gop receive`` in a fresh
+    process; (d) one update with gamma noise and one from
+    ``sampling.init_prev_t=0.5``, each rerun from the same generator seed
+    bit-identical and equal to the eager loop; (e) the annealed-Langevin
+    samplers with the full-width UNet as eps_fn on a few levels of
+    ``get_sigmas(cfg)``: finite, reruns bit-identical, and the plain sampler
+    through the graphed UNet equal to its eager loop. ((b): phases 7 and 8
+    ran through the graph.) Returns its rows and the attention launches of
+    each path."""
+    from tvc_torch.pipeline.sender import Sender, run_gop
+    from tvc_torch.samplers import langevin
+    from tvc_torch.samplers.graph import GraphedEps
+    from tvc_torch.samplers.schedules import get_sigmas
+
+    per_call = sum(n for *_, n in LEVELS)
+    rows, launches = {}, {}
+    cfg = predictor.cfg
+
+    # (a) graph against eager, DDPM, B = 1 and 8
+    attn.reset_launches()
+    ab = {}
+    for b in (1, 8):
+        cond = np.repeat(video[0, :2].transpose(1, 2, 0, 3).reshape(1, 128, 128, 6), b, 0)
+        cond = cond + np.float32(0.01) * np.arange(b, dtype=np.float32)[:, None, None, None]
+        x_init, noise = predictor.draws(torch.Generator(device="cuda").manual_seed(50 + b), b)
+        if graph_at(predictor, b) is None:  # phases 5 and 11 captured both; if not, now
+            predictor.generate(cond, x_init=x_init, noise=noise)
+        entry = graph_at(predictor, b)
+        if entry is None:
+            fail(f"B = {b}: no UNet graph was captured in an update")
+        replays = entry.replays
+        graphed, g_wall, g_dev = update_times(
+            torch, lambda: predictor.generate(cond, x_init=x_init, noise=noise))
+        eager, e_wall, e_dev = update_times(
+            torch, lambda: eager_generate(predictor, cond, x_init, noise))
+        ab[b] = {"graph_wall_s": g_wall, "graph_event_s": g_dev, "eager_wall_s": e_wall,
+                 "eager_event_s": e_dev, "wall_over_device": g_wall / g_dev,
+                 "eager_wall_over_graph_device": e_wall / g_dev,
+                 "capture_s": entry.capture_s, "pool_gb": entry.pool_bytes / 1e9,
+                 "replays_in_update": entry.replays - replays,
+                 "byte_identical": graphed.cpu().numpy().tobytes() ==
+                 eager.cpu().numpy().tobytes()}
+        log(f"graph_vs_eager B={b} " + json.dumps(ab[b]))
+        if ab[b]["replays_in_update"] != predictor.n_steps:
+            fail(f"B = {b}: the update replayed its UNet graph {ab[b]['replays_in_update']} "
+                 f"times, not {predictor.n_steps}")
+        if not ab[b]["byte_identical"]:
+            fail(f"B = {b}: the graphed update differs from the eager loop")
+    launches["graph_vs_eager"] = attn.launches
+    rows["graph_vs_eager"] = ab
+
+    # (c) DDIM and F-PNDM GOPs, received in fresh processes
+    cond1 = video[0, :2].transpose(1, 2, 0, 3).reshape(1, 128, 128, 6)
+    for version, per_update in (("DDIM", 101 * per_call), ("FPNDM", 109 * per_call)):
+        pred_v, mods = sampler_predictor(predictor, **{"model.version": version})
+        sender = Sender(GOP_THRESHOLD, pred_v.cfg, pred_v, lpips)
+        # the warm-up and the capture, so that every UNet call of the sender's
+        # updates replays the graph
+        pred_v.generate(cond1, generator=torch.Generator(device="cuda").manual_seed(0))
+        replays = graph_at(pred_v, 1).replays
+        attn.reset_launches()
+        gop, wall = timed(torch, lambda: run_gop(sender, coder, video[0], cfg.seed,
+                                                  SAMPLER_FRAMES, cfg.codec.patch,
+                                                  keep_streams=True))
+        n = attn.launches
+        launches[f"{version.lower()}_gop"] = n
+        recv = receive_in_fresh_process(gop, pred_v.cfg, coder,
+                                        ["codec.entropy_backend=device", *mods])
+        row = {"sender_wall_s": wall, "n_updates": gop.n_updates, "accepts": gop.accepts,
+               "update_s": gop.update_s, "attention_launches": n,
+               "launches_per_update": n / gop.n_updates, **recv}
+        log(f"{version.lower()}_gop " + json.dumps(row))
+        rows[version.lower()] = row
+        if not recv["byte_identical"]:
+            fail(f"the {version} receiver's frames differ from the sender's")
+        if graph_at(pred_v, 1).replays - replays != gop.n_updates * pred_v.n_steps:
+            fail(f"the {version} sender's UNet calls did not all replay its graph")
+        if n != per_update * gop.n_updates or pred_v.n_steps * per_call != per_update:
+            fail(f"{version}: {n} attention launches over {gop.n_updates} updates, "
+                 f"not {per_update} each")
+        x = gop.x_ge[0]
+        if not np.isfinite(x).all() or x.min() < 0 or x.max() > 1:
+            fail(f"the {version} GOP's frames are not finite frames in [0, 1]")
+
+    # (d) gamma noise and the t_min warm start: an update and its rerun from the
+    # same generator seed (the first call's first UNet call is eager, every
+    # other replays the graph), and the eager loop on the same draws
+    for name, mods, calls in (("gamma", {"model.gamma": True}, 101),
+                              ("t_min", {"sampling.init_prev_t": 0.5}, 96)):
+        pred_v, _ = sampler_predictor(predictor, **mods)
+        outs, walls = [], []
+        attn.reset_launches()
+        for _ in range(2):
+            gen = torch.Generator(device="cuda").manual_seed(60)
+            out, wall, _ = update_times(torch, lambda: pred_v.generate(cond1, generator=gen))
+            outs.append(out)
+            walls.append(wall)
+        n = attn.launches
+        launches[f"{name}_update"] = n
+        replays = [st["replays"] for st in pred_v.graphs.stats().values()]
+        x_init, noise = pred_v.draws(torch.Generator(device="cuda").manual_seed(60), 1)
+        eager = eager_generate(pred_v, cond1, x_init, noise)
+        row = {"walls_s": walls, "attention_launches": n, "unet_calls": pred_v.n_steps,
+               "noise_rows": int(noise.shape[0]), "graph_replays": replays,
+               "rerun_identical": torch.equal(outs[0], outs[1]),
+               "graph_equals_eager": torch.equal(outs[1], eager)
+               and replays == [2 * calls - 1],
+               "finite": bool(torch.isfinite(outs[1]).all())}
+        log(f"{name}_update " + json.dumps(row))
+        rows[name] = row
+        if not (row["rerun_identical"] and row["graph_equals_eager"] and row["finite"]):
+            fail(f"{name}: rerun {row['rerun_identical']}, graph = eager "
+                 f"{row['graph_equals_eager']}, finite {row['finite']}")
+        if pred_v.n_steps != calls or n != 2 * calls * per_call:
+            fail(f"{name}: {pred_v.n_steps} UNet calls and {n} launches in two updates, "
+                 f"not {calls} and {2 * calls * per_call}")
+
+    # (e) the annealed-Langevin samplers, the full-width UNet as eps_fn
+    from tvc_torch.core.runtime import batched_conv_algorithms, to_tensor
+    from tvc_torch.pipeline.transforms import data_transform
+
+    def interpolation(*args, **kwargs):  # two chains: B = 2 takes timed algorithms
+        with batched_conv_algorithms(2, "cuda"):
+            return langevin.anneal_langevin_dynamics_interpolation(*args, **kwargs)
+
+    full = get_sigmas(cfg)
+    sigmas = full[np.linspace(0, len(full) - 1, LANGEVIN_LEVELS).astype(int)]
+    n_flat = LANGEVIN_LEVELS * LANGEVIN_STEPS
+    cond = data_transform(cfg, to_tensor(cond1, "cuda"))
+    shape = (1, 128, 128, cfg.data.channels * cfg.data.num_frames)
+    g = torch.Generator(device="cuda").manual_seed(70)
+    x0 = torch.randn(shape, generator=g, device="cuda")
+    noise = torch.randn((n_flat,) + shape, generator=g, device="cuda")
+    half = torch.randn((n_flat,) + shape[:2] + (64,) + shape[3:], generator=g, device="cuda")
+    pq = torch.randn((n_flat, 2) + shape, generator=g, device="cuda")
+    ref = torch.rand(shape, generator=g, device="cuda")
+    unet = predictor.model
+    n_cons = (LANGEVIN_LEVELS - 1) * LANGEVIN_STEPS + 1
+    cons_noise = torch.randn((n_cons,) + shape, generator=g, device="cuda")
+    kw = dict(n_steps_each=LANGEVIN_STEPS, step_lr=float(sigmas[-1] ** 2))
+    runs = {
+        "anneal": lambda x_init=x0, noise=noise: langevin.anneal_langevin_dynamics(
+            x_init, unet, sigmas, cond=cond, noise=noise, **kw),
+        "sparse": lambda: langevin.sparse_anneal_langevin_dynamics(
+            x0, 0.5, unet, sigmas, cond=cond, noise=noise, **kw),
+        "consistent": lambda: langevin.anneal_langevin_dynamics_consistent(
+            x0, unet, sigmas, cond=cond, noise=cons_noise, **kw),
+        "inpainting": lambda: langevin.anneal_langevin_dynamics_inpainting(
+            x0, ref, unet, sigmas, cond=cond, noise=noise, corrupt_noise=half, **kw),
+        "interpolation": lambda: interpolation(
+            x0, unet, sigmas, 2, cond=cond.repeat(2, 1, 1, 1), noise=pq, **kw),
+    }
+    lrow = {}
+    attn.reset_launches()
+    for name, fn in runs.items():
+        (a, wall, _), b = update_times(torch, fn), fn()
+        lrow[name] = {"wall_s": wall, "shape": list(a.shape),
+                      "finite": bool(torch.isfinite(a).all()), "rerun_identical": torch.equal(a, b)}
+        if not (lrow[name]["finite"] and lrow[name]["rerun_identical"]):
+            fail(f"Langevin {name}: {lrow[name]}")
+    graphed = GraphedEps(unet)  # n_flat + 1 UNet calls a run (the last denoises)
+    eager = runs["anneal"]()
+    outs = [langevin.anneal_langevin_dynamics(x0, graphed, sigmas, cond=cond, noise=noise, **kw)
+            for _ in range(2)]
+    lrow["anneal_graph_replays"] = [st["replays"] for st in graphed.stats().values()]
+    lrow["anneal_graph_equals_eager"] = (all(torch.equal(o, eager) for o in outs)
+                                         and lrow["anneal_graph_replays"] == [2 * n_flat + 1])
+    lrow["sigmas"] = [float(v) for v in sigmas]
+    launches["langevin"] = attn.launches
+    log("langevin " + json.dumps(lrow))
+    if not lrow["anneal_graph_equals_eager"]:
+        fail("the Langevin sampler's graph differs from its eager loop")
+    rows["langevin"] = lrow
+    return rows, launches
+
+
 def main() -> None:
     import torch
 
@@ -1216,6 +1488,9 @@ def main() -> None:
                                 write_i3d_checkpoint(torch, tmp), ["codec.entropy_backend=device"],
                                 card)
         evaluation_s = time.perf_counter() - t14
+    t15 = time.perf_counter()
+    samplers, sampler_launches = phase_samplers(torch, attn, predictor, coder, lpips, video)
+    samplers_s = time.perf_counter() - t15
     path_launches = {"run_gop": gop["attention_launches"],
                      "device_gop": device_gop["attention_launches"],
                      "fused_run": fused["attention_launches"],
@@ -1226,7 +1501,8 @@ def main() -> None:
                      "cli_sweep_fused": seq["fused"]["attention_launches"],
                      "run_sweep_run_gop": seq["run_gop"]["attention_launches"],
                      "run_sweep_device_gop": seq["device_gop"]["attention_launches"],
-                     "cli_sweep_fvd": evaluation["sweep"]["attention_launches"]}
+                     "cli_sweep_fvd": evaluation["sweep"]["attention_launches"],
+                     **sampler_launches}
     log("launches " + json.dumps(path_launches))
     main_launches = sum(path_launches.values())
     if min(path_launches.values()) <= 0:
@@ -1272,6 +1548,11 @@ def main() -> None:
                                       for m, v in evaluation["i3d"].items()},
         "cli_sweep_fvd_wall_s": evaluation["sweep"]["process_wall_s"],
         "anchors_wall_s": evaluation["anchors"]["process_wall_s"],
+        "sampler_phase_s": samplers_s,
+        "graph_vs_eager": samplers["graph_vs_eager"],
+        "sampler_gop_walls_s": {v: [samplers[v]["sender_wall_s"], samplers[v]["receiver_wall_s"]]
+                                for v in ("ddim", "fpndm")},
+        "graphs": predictor.graphs.stats(),
         "numerics": numerics(),
         "total_s": time.perf_counter() - t_start}))
     kernels = [{

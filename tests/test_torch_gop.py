@@ -246,7 +246,8 @@ def test_cli_gop_is_byte_identical_across_processes(cli_gop):
     assert "[gop send]" in send_out and "[gop receive] reconstructed 10 frames" in recv_out
 
 
-@pytest.mark.parametrize("field", ["torch", "attention_build", "cpu_threads"])
+@pytest.mark.parametrize("field", ["torch", "attention_build", "cpu_threads", "model.version",
+                                   "sampling.init_prev_t"])
 def test_cli_receive_refuses_other_numerics(cli_gop, tmp_path, capsys, field):
     d, common, _, _ = cli_gop
     with np.load(d / "gop.tvcg") as z:
@@ -259,6 +260,27 @@ def test_cli_receive_refuses_other_numerics(cli_gop, tmp_path, capsys, field):
         np.savez(f, **payload)
     assert cli.main(["gop", "receive", "--payload", str(path), *common]) == 2
     assert key in capsys.readouterr().err
+
+
+def test_cli_ddim_payload_needs_a_ddim_receiver(tmp_path):
+    """A GOP sent with model.version=DDIM is rebuilt byte for byte by a DDIM
+    receiver in a fresh process; a receiver under DDPM exits 2 naming the field."""
+    np.save(tmp_path / "video.npy", smooth_video())
+    payload = str(tmp_path / "ddim.tvcg")
+    ddim = ["--device", "cpu", "--config-mod", *TINY_MODS, "model.version=DDIM"]
+    send = _cli("gop", "send", "--video-npy", str(tmp_path / "video.npy"), "--payload", payload,
+                "--threshold", "0.05", "--num-frames", str(T), "--allow-uncalibrated",
+                "--output-npy", str(tmp_path / "sender.npy"), *ddim)
+    assert send.returncode == 0, send.stderr[-3000:]
+    recv = _cli("gop", "receive", "--payload", payload, "--output-npy",
+                str(tmp_path / "receiver.npy"), *ddim)
+    assert recv.returncode == 0, recv.stderr[-3000:]
+    a, b = np.load(tmp_path / "sender.npy"), np.load(tmp_path / "receiver.npy")
+    assert a.shape == (T, 64, 64, 3) and a.tobytes() == b.tobytes()
+    ddpm = _cli("gop", "receive", "--payload", payload, "--device", "cpu", "--config-mod",
+                *TINY_MODS)
+    assert ddpm.returncode == 2
+    assert "numerics_model.version='DDIM'" in ddpm.stderr and "'DDPM'" in ddpm.stderr
 
 
 def test_cli_receive_refuses_another_entropy_backend(cli_gop, capsys):

@@ -353,3 +353,53 @@ def test_inception_and_lpips_on_card_match_cpu(cuda):
         host = LPIPSMetric.create(device="cpu", net_type=net_type)(imgs, other)
         card = LPIPSMetric.create(device="cuda", net_type=net_type)(imgs, other).cpu()
         assert (host - card).abs().max().item() <= 1e-5, net_type
+
+
+@pytest.mark.parametrize("version,gamma,t_min", [("DDPM", False, -1.0), ("DDPM", True, 0.5),
+                                                 ("DDIM", False, 0.5), ("FPNDM", False, -1.0)],
+                         ids=["ddpm", "ddpm_gamma_t_min", "ddim_t_min", "fpndm"])
+def test_graph_equals_eager_bit_for_bit(cuda, version, gamma, t_min):
+    """Each sampler through the graphed UNet (a batch's first UNet call is
+    the eager warm-up, the second captures and replays, every later one
+    replays) gives the eager sampler's frames bit for bit at B = 1 and 2, and
+    the graph's launches are counted at replay."""
+    cfg, base, _, _ = _narrow_pipeline()
+    from tvc_torch.pipeline.predictor import FramePredictor
+
+    cfg.model.version, cfg.model.gamma, cfg.sampling.init_prev_t = version, gamma, t_min
+    pred = FramePredictor(cfg, base.model)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for b in (1, 2):
+        cond = torch.rand((b, 64, 64, 6), generator=g, device="cuda")
+        x_init, noise = pred.draws(torch.Generator(device="cuda").manual_seed(b), b)
+        outs, counts = [], []
+        for _ in range(3):
+            attn.reset_launches()
+            outs.append(pred.generate(cond, x_init=x_init, noise=noise))
+            counts.append(attn.launches)
+        assert counts[0] == counts[1] == counts[2] > 0 and counts[0] % pred.n_steps == 0
+        from tvc_torch.core.runtime import batched_conv_algorithms
+        from tvc_torch.pipeline.transforms import data_transform, inverse_data_transform
+
+        step, warm = pred._split(noise)
+        with batched_conv_algorithms(b, "cuda"):
+            eager = pred._sample(x_init, data_transform(cfg, cond), step, warm,
+                                 eps_fn=pred.model)[-1]
+        eager = inverse_data_transform(cfg, eager).reshape(b, 64, 64, 3, 3).permute(0, 3, 1, 2, 4)
+        for out in outs:
+            assert torch.equal(out, eager)
+    n = 3 * pred.n_steps - 1  # three updates, less the warm-up call
+    assert [s["replays"] for s in pred.graphs.stats().values()] == [n, n]
+
+
+def test_default_width_tvc_container_decodes_on_card(cuda):
+    """The default-width container ``tvc/`` wrote (tests/test_torch_cross_decode.py)
+    decodes in the port with its g_s on the card; the count of streams that
+    give ``tvc/``'s symbols is printed."""
+    from tvc_torch.tools import cross_decode
+
+    out = cross_decode.decode("cuda")
+    print(f"cross-package decode on the card: {out['matched']} of {out['streams']} streams "
+          f"give tvc's symbols; x_hat within {out['x_hat_max_abs_diff']:.3g}")
+    assert out["matched"] == out["streams"]
+    assert out["x_hat_max_abs_diff"] <= 1e-4 * out["x_hat_max_abs"]

@@ -161,10 +161,16 @@ def test_dequantization_draws_from_the_generator():
 
 
 def test_get_sampler():
+    """The registry of tvc/samplers/__init__.py:8-13, every sampler ported."""
+    from tvc.samplers import _SAMPLERS as J_SAMPLERS
+    from tvc_torch.samplers import (anneal_langevin_dynamics, ddim_sampler, fpndm_sampler)
+
     assert get_sampler("ddpm") is ddpm_sampler
-    for v in ("DDIM", "FPNDM"):
-        with pytest.raises(NotImplementedError):
-            get_sampler(v)
+    assert get_sampler("DDIM") is ddim_sampler
+    assert get_sampler("fpndm") is fpndm_sampler
+    assert get_sampler("SMLD") is anneal_langevin_dynamics
+    assert {v: get_sampler(v).__name__ for v in J_SAMPLERS} == \
+        {v: f.__name__ for v, f in J_SAMPLERS.items()}
     with pytest.raises(ValueError):
         get_sampler("nope")
 

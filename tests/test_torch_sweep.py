@@ -296,8 +296,10 @@ def test_cli_sweep_guards(tmp_path, capsys, args, where, text):
     assert not (tmp_path / "out" / "config.yml").exists()
 
 
-@pytest.mark.parametrize("mode", [[], ["--batched", "2"]])
+@pytest.mark.parametrize("mode", [[], ["--batched", "2"], ["--exact-streams"]])
 def test_cli_sweep_stamps_provenance(tmp_path, mode):
+    """The sweep's provenance; ``--exact-streams``, the old spelling of the
+    default exact path, is accepted as a no-op, as by the JAX package."""
     out = tmp_path / "out"
     rc = cli.main(["sweep", "--data-npy", _dataset(tmp_path / "d.npy"), "--output-path",
                    str(out), "--device", "cpu", "--config-mod", *TINY_MODS, "--no-fvd",

@@ -223,7 +223,7 @@ def cmd_gop(argv: List[str]) -> int:
     from tvc_torch.core.runtime import numerics_stamp
 
     cfg = _load_cfg(args)
-    stamp = numerics_stamp(args.device, cfg.codec.entropy_backend)
+    stamp = numerics_stamp(args.device, cfg)
     if args.mode == "send":
         from tvc_torch.metrics.lpips import LPIPSMetric
         from tvc_torch.pipeline.sender import DeviceGOPRunner, Sender, run_gop
@@ -313,9 +313,12 @@ def cmd_sweep(argv: List[str]) -> int:
                          "batch size (0: one GOP at a time)")
     ap.add_argument("--device-gop", action="store_true",
                     help="one GOP at a time through DeviceGOPRunner (not with --batched)")
+    ap.add_argument("--exact-streams", action="store_true",
+                    help=argparse.SUPPRESS)  # the old spelling of the default exact path
     ap.add_argument("--fused-gop", action="store_true",
                     help="one GOP at a time through the whole-GOP sender: likelihood bits, "
-                         "not rANS byte counts (not with --batched or --queue-dir)")
+                         "not rANS byte counts (not with --exact-streams, --batched or "
+                         "--queue-dir)")
     ap.add_argument("--num-processes", type=int, default=1,
                     help="processes sharing the walks (--batched)")
     ap.add_argument("--process-id", type=int, default=0)
@@ -348,6 +351,8 @@ def cmd_sweep(argv: List[str]) -> int:
         cfg.codec.exact_streams = False
         print("[tvc_torch] codec path: the simulation coder (--sim-codec); its streams are not "
               "receiver-decodable")
+    elif args.exact_streams:
+        cfg.codec.exact_streams = True  # already the default
     metrics = build_metrics(args, with_fvd=not args.no_fvd)
     if metrics is None:
         return 2

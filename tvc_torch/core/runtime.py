@@ -38,16 +38,22 @@ def numerics() -> Dict[str, bool]:
     }
 
 
-def numerics_stamp(device, entropy_backend: str) -> Dict[str, str]:
+# the sampler settings that change a prediction's frames
+SAMPLER_FIELDS = ("model.version", "model.gamma", "sampling.init_prev_t", "sampling.subsample",
+                  "sampling.denoise", "sampling.clip_before")
+
+
+def numerics_stamp(device, cfg) -> Dict[str, str]:
     """What decides a run's bits, as strings: the versions of torch, CUDA and
-    cuDNN, the card, the backend flags, the codec's entropy backend and the
-    attention kernel's build key; where the host computes something the
-    receiver must repeat, its CPU's vector capability, and on a CPU device
-    its thread count. A GOP payload carries it, and a receiver whose own
-    stamp differs refuses the payload."""
+    cuDNN, the card, the backend flags, the codec's entropy backend, the
+    attention kernel's build key and the sampler's settings of ``cfg``;
+    where the host computes something the receiver must repeat, its CPU's
+    vector capability, and on a CPU device its thread count. A GOP payload
+    carries it, and a receiver whose own stamp differs refuses the payload."""
     from tvc_torch.ops import _build
 
     dev = resolve_device(device)
+    entropy_backend = cfg.codec.entropy_backend
     stamp = {
         "torch": torch.__version__,
         "cuda": str(torch.version.cuda),
@@ -58,6 +64,10 @@ def numerics_stamp(device, entropy_backend: str) -> Dict[str, str]:
         "attention_build": _build.build_key("attention"),
     }
     stamp.update({k: str(v) for k, v in numerics().items()})
+    for field in SAMPLER_FIELDS:
+        section, key = field.split(".")
+        value = getattr(getattr(cfg, section), key)
+        stamp[field] = value.upper() if field == "model.version" else str(value)
     if dev.type == "cpu" or entropy_backend == "cpu":
         stamp["cpu_capability"] = torch.backends.cpu.get_cpu_capability()
     if dev.type == "cpu":

@@ -36,13 +36,22 @@ MAX_SPLITS = 8      # the portable thread-block cluster size
 MAX_BLOCKS = 96
 
 # Kernel launches since the last reset_launches(). Counted only where the
-# CUDA kernel is launched, never on the CPU path.
+# CUDA kernel is launched, never on the CPU path. A launch recorded into a
+# CUDA graph is not one: it adds to ``captured``, and the graph's owner
+# counts its launches at each replay (``count_launches``).
 launches = 0
+captured = 0
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def count_launches(n: int) -> None:
+    """Count ``n`` launches made by replaying a CUDA graph."""
+    global launches
+    launches += n
 
 
 class AttentionPlan(NamedTuple):
@@ -115,8 +124,9 @@ def _kernel():
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plan: AttentionPlan) -> torch.Tensor:
     """Launch the kernel on CUDA tensors that ``_check`` accepts, with a given
     plan (the kernel refuses one that leaves a key out); ``attention`` passes
-    ``attention_plan``'s, ``chip_smoke.py --sweep`` others. Counts one launch."""
-    global launches
+    ``attention_plan``'s, ``chip_smoke.py --sweep`` others. Counts one launch,
+    or one capture while the stream records a CUDA graph."""
+    global launches, captured
     b, h, t, d = q.shape
     fn = _kernel()
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -127,7 +137,10 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plan: AttentionPla
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed with CUDA error {err} "
                            f"at shape {(b, h, t, d)} {q.dtype} with {plan}")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return out
 
 

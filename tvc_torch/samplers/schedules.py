@@ -3,7 +3,8 @@
 - ``get_sigmas``: the linear / geometric / cosine profiles;
 - ``Schedule``: alphas[i] = prod_{m>=i}(1 - betas[m]) (flip-cumprod-flip);
 - ``Schedule.subsample``: steps = range(0, T, T // subsample),
-  betas = 1 - alphas / alphas_prev.
+  betas = 1 - alphas / alphas_prev;
+- ``Schedule.frac``: the last fraction of the full-resolution steps.
 
 All arrays are host-side numpy float64; samplers cast them as they need.
 """
@@ -81,6 +82,16 @@ class Schedule:
             betas=1.0 - alphas / alphas_prev,
             k_cum=self.k_cum[steps] if self.k_cum is not None else None,
             theta_t=self.theta_t[steps] if self.theta_t is not None else None)
+
+    def frac(self, frac_steps: float) -> "SubSchedule":
+        """Keep only the last fraction of steps, with the gamma auxiliaries."""
+        sub = self.subsample(None)
+        keep = slice(int((1 - frac_steps) * len(sub.steps)), None)
+        return SubSchedule(
+            steps=sub.steps[keep], alphas=sub.alphas[keep], alphas_prev=sub.alphas_prev[keep],
+            betas=sub.betas[keep],
+            k_cum=sub.k_cum[keep] if sub.k_cum is not None else None,
+            theta_t=sub.theta_t[keep] if sub.theta_t is not None else None)
 
 
 @dataclasses.dataclass(frozen=True)

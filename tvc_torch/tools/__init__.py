@@ -1,1 +1,1 @@
-"""Measurement tools for the port's kernels; they run on the card only."""
+"""Measurement tools for the port (each module says where it runs)."""
