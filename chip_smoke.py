@@ -4,7 +4,7 @@
 byte by a receiver in a fresh process; then the serving paths, the rate
 sweep, the evaluation path (FVD, LPIPS backbones, FID, the anchors), and
 the sampler layer (DDIM, F-PNDM, every DDPM option, the Langevin samplers)
-with every prediction replayed as a CUDA graph.
+with every prediction replayed as a CUDA graph, and the training path.
 
     python3 chip_smoke.py
 
@@ -101,9 +101,24 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
     ``get_sigmas(cfg)`` with 2 inner steps: finite, reruns bit-identical, the
     plain sampler through the graphed UNet equal to its eager loop.
 
-Every path above (7, 8, 10-15) must launch the attention kernel 1010 times per
-DDPM or DDIM update or lockstep sweep (F-PNDM 1090, the warm start 960); the
-``kernels`` line sums their launches.
+16. training: (a) the kernel's forward and backward (``KernelAttention``)
+    against autograd through ``attention_plain`` at the three levels at B = 1
+    and 8, with the times of the kernel's forward, its backward and plain's
+    forward + backward; (b) the full-width DSM loss and every gradient at
+    B = 8 through the kernel against the plain attention's (the largest
+    relative error among the attention blocks' GroupNorm_0 and NIN_0..2
+    named, none of them zero), one optimizer step that moves the parameters
+    and the EMA, a step's time and peak memory; (c) ``python -m
+    tvc_torch.cli train`` at full width, B = 8, in a fresh process (3 steps,
+    a snapshot at step 2), then a second process resumed from that snapshot
+    to step 3 (the snapshot must load bit for bit, the resumed optimizer
+    count 3); (d) phase 16b's first step under a world-size-1 NCCL group
+    (DDP), which must equal it; (e) ``numerics()`` the same after the phase
+    as before it.
+
+Every path above (7, 8, 10-16) must launch the attention kernel 1010 times per
+DDPM or DDIM update or lockstep sweep (F-PNDM 1090, the warm start 960), 10 per
+train step; the ``kernels`` line sums their launches.
 
 The last lines are the ``kernels`` JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -1413,6 +1428,318 @@ def phase_samplers(torch, attn, predictor, coder, lpips, video):
     return rows, launches
 
 
+TRAIN_BATCH = 8       # phase 16: the CLI's default batch
+TRAIN_CLI_STEPS = 3   # phase 16c: steps of the first train process (snapshot at step 2)
+ATTN_GRAD_TOL = 1e-4  # (a) max |kernel grad - plain grad| / max |plain grad|, float32
+TRAIN_GRAD_TOL = 1e-3  # (b) each gradient, against its magnitude or 1e-3 of the largest
+DDP_LR_TOL = 2e-3     # (d) max |DDP step - plain step| of a parameter, in units of lr
+
+
+def train_inputs(torch, cfg, b):
+    """A seeded full-width batch in model space and its DSM draws."""
+    from tvc_torch.losses.dsm import draw_dsm
+    from tvc_torch.samplers.schedules import Schedule
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    size, c = cfg.data.image_size, cfg.data.channels
+    batch = {"x": torch.rand((b, size, size, c * cfg.data.num_frames), generator=g,
+                             device="cuda") * 2 - 1,
+             "cond": torch.rand((b, size, size, c * cfg.data.num_frames_cond), generator=g,
+                                device="cuda") * 2 - 1}
+    labels, noise = draw_dsm(batch["x"].shape, Schedule.from_config(cfg),
+                             torch.Generator().manual_seed(6), device="cuda")
+    return batch, labels, noise
+
+
+def train_state(torch, cfg, layers):
+    """The flagship UNet's train state from seed 0, with the layers the DDPM
+    init scales to ~0 redrawn (the EMA too) so that the attention's gradients
+    carry signal."""
+    from tvc_torch.parallel.train import make_train_step
+
+    init_fn, step_fn = make_train_step(cfg, device="cuda")
+    state = init_fn(0)
+    layers.redraw_zero_scaled_(state.module, torch.Generator().manual_seed(1))
+    state.ema = {n: p.detach().clone() for n, p in state.params.items()}
+    return state, step_fn
+
+
+def phase_train_attention(torch, attn):
+    """Phase 16a: the kernel's forward and backward against autograd through
+    ``attention_plain``, at the three levels at B = 1 and 8."""
+    rows = []
+    for b in (1, TRAIN_BATCH):
+        for name, t, h, per_call in LEVELS:
+            g = torch.Generator(device="cuda").manual_seed(11)
+            bases = [torch.randn((b, t, h * HEAD_DIM), generator=g, device="cuda")
+                     .requires_grad_() for _ in range(3)]
+            q, k, v = (head_view(x, b, h, t, HEAD_DIM) for x in bases)
+            dout = torch.randn((b, t, h, HEAD_DIM), generator=g, device="cuda").transpose(1, 2)
+            out = attn.attention(q, k, v)
+            if out.grad_fn is None:
+                fail(f"attention {name} B={b}: the kernel's output has no grad_fn")
+            got = torch.autograd.grad(out, bases, dout)
+            ref = attn.attention_plain(q, k, v)
+            want = torch.autograd.grad(ref, bases, dout)
+            row = {"level": name, "B": b, "out_err": (out - ref).abs().max().item()}
+            for key, a, w in zip(("dq", "dk", "dv"), got, want):
+                row[f"{key}_err"] = (a - w).abs().max().item()
+                row[f"{key}_rel"] = row[f"{key}_err"] / w.abs().max().item()
+            if not row["out_err"] <= F32_TOL or not max(
+                    row[f"{k}_rel"] for k in ("dq", "dk", "dv")) <= ATTN_GRAD_TOL:
+                fail(f"attention gradient {name} B={b}: {row}")
+            with torch.no_grad():
+                row["fwd_ms"] = time_ms(torch, lambda: attn.attention(q, k, v), 20)
+                row["bwd_ms"] = time_ms(torch, lambda: attn.attention_backward(q, k, v, out,
+                                                                               dout), 20)
+            row["plain_fwd_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+                attn.attention_plain(q, k, v), bases, dout), 20)
+            row["per_unet_call"] = per_call
+            rows.append(row)
+            log("train_attention " + json.dumps(row))
+    return rows
+
+
+def phase_train_step(torch, attn, layers):
+    """Phase 16b: the full-width DSM loss and every gradient through the kernel
+    against the plain attention's, one optimizer step, and a step's time.
+    Returns the row and the parameters, EMA and loss after the first step
+    (phase 16d's reference)."""
+    from unittest import mock
+
+    from tvc_torch.core import runtime
+    from tvc_torch.core.config import Config
+    from tvc_torch.losses.dsm import anneal_dsm_score_estimation
+    from tvc_torch.samplers.schedules import Schedule
+
+    cfg = Config()
+    cfg.optim.warmup = 0  # the default warmup gives the first update lr 0
+    state, step_fn = train_state(torch, cfg, layers)
+    n_params = sum(p.numel() for p in state.params.values())
+    if round(n_params / 1e6, 1) != 262.1:
+        fail(f"expected the 262.1M-parameter flagship UNet, got {n_params}")
+    batch, labels, noise = train_inputs(torch, cfg, TRAIN_BATCH)
+    sched = Schedule.from_config(cfg)
+
+    def grads():
+        state.module.zero_grad(set_to_none=True)
+        loss = anneal_dsm_score_estimation(lambda x, y, c, _m: state.model(x, y, c), batch["x"],
+                                           sched, cond=batch["cond"], labels=labels, noise=noise)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in state.params.items()}
+
+    with runtime.training_numerics("cuda"):
+        loss, got = grads()
+        with mock.patch.object(layers, "attention", attn.attention_plain):
+            ref_loss, want = grads()
+    floor = 1e-3 * max(w.abs().max().item() for w in want.values())
+    rel = {n: (got[n] - w).abs().max().item() / max(w.abs().max().item(), floor)
+           for n, w in want.items()}
+    attn_names = [n for n in want if any(f".{m}." in n for m in
+                                         ("GroupNorm_0", "NIN_0", "NIN_1", "NIN_2"))]
+    worst_attn = max(attn_names, key=rel.get)
+    zero = [n for n in attn_names if not n.endswith("NIN_1.b") and not got[n].abs().max() > 0]
+    row = {"n_params": n_params, "batch": TRAIN_BATCH, "loss": loss, "plain_loss": ref_loss,
+           "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+           "max_grad_rel_err": max(rel.values()), "worst_param": max(rel, key=rel.get),
+           "attention_block_params": len(attn_names), "worst_attention_param": worst_attn,
+           "worst_attention_rel_err": rel[worst_attn],
+           "zero_attention_grads": zero, "tol": TRAIN_GRAD_TOL}
+    log("train_grads " + json.dumps(row))
+    del got, want
+    if (len(attn_names) != 80 or zero or not row["loss_rel_err"] <= 1e-5
+            or not row["max_grad_rel_err"] <= TRAIN_GRAD_TOL):
+        fail("the full-width gradients through the kernel disagree with the plain attention")
+
+    before = {n: p.detach().clone() for n, p in state.params.items()}
+    ema_before = {n: e.clone() for n, e in state.ema.items()}
+    attn.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    state, step_loss = step_fn(state, batch, labels, noise)
+    torch.cuda.synchronize()
+    row["first_step_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9  # algorithms chosen
+    ref = {"loss": step_loss.item(), "params": {n: p.detach().clone()
+                                                for n, p in state.params.items()},
+           "ema": {n: e.clone() for n, e in state.ema.items()}}
+    row["params_moved"] = sum(not torch.equal(p, before[n]) for n, p in ref["params"].items())
+    row["ema_moved"] = sum(not torch.equal(e, ema_before[n]) for n, e in ref["ema"].items())
+    del before, ema_before
+    if not row["params_moved"] or not row["ema_moved"] or not np.isfinite(ref["loss"]):
+        fail(f"one optimizer step did not move the parameters and the EMA: {row}")
+
+    def step_s():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(state, batch, labels, noise)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # cuDNN chose its algorithms for these shapes in the first backward above
+    # and keeps them for the process, whatever the mode of a later call: the
+    # heuristic's steps are timed in fresh processes by
+    # ``python -m tvc_torch.tools.conv_algorithms --train``
+    torch.cuda.reset_peak_memory_stats()
+    row["step_s"] = [step_s() for _ in range(3)]
+    row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    row["conv_algorithms"] = "timed" if runtime.TRAINING_TIMES_CONV_ALGORITHMS else "heuristic"
+    row["launches"] = attn.launches
+    if attn.launches != 10 * (1 + 3):
+        fail(f"four full-width train steps launched {attn.launches} attention kernels, not 40")
+    log("train_step " + json.dumps(row))
+    del state
+    return row, ref
+
+
+def phase_train_ddp(torch, attn, layers, ref):
+    """Phase 16d: phase 16b's first step under a world-size-1 NCCL group
+    (``env://`` on localhost): the model wrapped in DDP."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from tvc_torch.core.config import Config
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    dist.init_process_group("nccl", init_method="env://", world_size=1, rank=0)
+    try:
+        cfg = Config()
+        cfg.optim.warmup = 0
+        state, step_fn = train_state(torch, cfg, layers)
+        if not isinstance(state.model, DistributedDataParallel):
+            fail("the train state is not wrapped in DDP under a process group")
+        batch, labels, noise = train_inputs(torch, cfg, TRAIN_BATCH)
+        attn.reset_launches()
+        state, loss = step_fn(state, batch, labels, noise)
+        launches = attn.launches
+        param_err = max((p.detach() - ref["params"][n]).abs().max().item()
+                        for n, p in state.params.items())
+        ema_err = max((e - ref["ema"][n]).abs().max().item() for n, e in state.ema.items())
+        row = {"world_size": dist.get_world_size(), "backend": dist.get_backend(),
+               "loss": loss.item(), "ref_loss": ref["loss"],
+               "loss_rel_err": abs(loss.item() - ref["loss"]) / abs(ref["loss"]),
+               "param_max_abs_err": param_err, "ema_max_abs_err": ema_err,
+               "lr": cfg.optim.lr, "tol_lr_units": DDP_LR_TOL,
+               "identical": param_err == 0.0 and ema_err == 0.0, "launches": launches}
+        log("train_ddp " + json.dumps(row))
+        if (not row["loss_rel_err"] <= 1e-6 or not param_err <= DDP_LR_TOL * cfg.optim.lr
+                or launches != 10):
+            fail("the DDP step under NCCL disagrees with the step without a group")
+        del state
+    finally:
+        dist.destroy_process_group()
+    return row
+
+
+def train_process(args, tag):
+    """``python -m tvc_torch.cli train *args`` in a fresh process on the card."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tvc_torch.cli", "train", "--device", "cuda",
+                           *args], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in (proc.stdout + proc.stderr).strip().splitlines():
+        log(f"  {tag}| " + line)
+    if proc.returncode != 0:
+        fail(f"the {tag} process exited {proc.returncode}")
+    out = proc.stdout
+    row = {"process_wall_s": wall, "resumed_from_logged": "resumed from" in out,
+           "launches": int(re.search(r"attention kernel launches: (\d+)", out).group(1)),
+           "peak_mem_gb": float(re.search(r"peak device memory: ([\d.e+-]+) GB", out).group(1)),
+           "loss_lines": re.findall(r"step \d+/\d+ loss .*", out)}
+    m = re.search(r"'final_loss': ([^,]+), 'steps': (\d+), 'wall_time': ([\d.e+-]+)", out)
+    row.update(final_loss=float(m.group(1)), steps=int(m.group(2)), wall_time_s=float(m.group(3)))
+    first = re.search(r"step \d+/\d+ loss \S+ \(([\d.]+)s/step\)", out)
+    row["first_step_s"] = float(first.group(1)) if first else None
+    row["snapshot_s"] = [float(v) for v in
+                         re.findall(r"snapshot \S+ written in ([\d.]+) s", out)]
+    return row
+
+
+def phase_train_cli(torch, tmp, video):
+    """Phase 16c: ``cli train`` at full width, B = 8, on a seeded dataset:
+    TRAIN_CLI_STEPS steps with a snapshot at step 2, then a fresh process
+    resumed from that snapshot to the same final step. The snapshot loads on
+    the card bit for bit (``load_train_state``, the resume's own path)."""
+    from tvc_torch.core.config import Config
+    from tvc_torch.parallel.train import make_train_step
+    from tvc_torch.utils.checkpoint_io import load_train_state
+
+    data = os.path.join(tmp, "train.npy")
+    frames = (np.clip(video[0, :12], 0, 1) * 255).astype(np.uint8).transpose(0, 3, 1, 2)
+    np.save(data, np.stack([frames, frames[::-1]]))  # (2 videos, 12, C, H, W)
+    first_dir, resumed_dir = os.path.join(tmp, "train"), os.path.join(tmp, "train_resumed")
+    common = ["--data-npy", data, "--batch-size", str(TRAIN_BATCH), "--steps",
+              str(TRAIN_CLI_STEPS)]
+    first = train_process(common + ["--out-dir", first_dir, "--snapshot-freq", "2"], "train")
+    snap = os.path.join(first_dir, "ckpt_2")
+    resumed = train_process(common + ["--out-dir", resumed_dir, "--resume-from", snap],
+                            "train resumed")
+    # what the resume restored: the snapshot through load_train_state on the card
+    init_fn, _ = make_train_step(Config(), device="cuda")
+    state = init_fn(0)
+    params, ema, step, opt = load_train_state(snap, state.params, state.ema, state.opt_state)
+    exact = step == 2
+    for name, tree in (("params", params), ("ema", ema), ("opt", opt)):
+        with np.load(f"{snap}.{name}.npz") as f:
+            exact &= sorted(f.files) == sorted(tree)
+            exact &= all(np.array_equal(f[k], tree[k].cpu().numpy()) for k in f.files)
+    del state, params, ema, opt
+    with np.load(os.path.join(resumed_dir, "ckpt_final.opt.npz")) as f:
+        counts = [int(f["count"]), int(f["adam_count"])]
+    final_step = int(np.load(os.path.join(resumed_dir, "ckpt_final.step.npy")))
+    # the loop's wall holds its snapshots' writes (4.2 GB each): take them out
+    n = TRAIN_CLI_STEPS
+    first["s_per_step_after_first"] = (first["wall_time_s"] - first["first_step_s"]
+                                       - sum(first["snapshot_s"])) / (n - 1)
+    row = {"first": first, "resumed": resumed, "snapshot_loads_bit_for_bit": bool(exact),
+           "resumed_final_step": final_step, "resumed_optimizer_counts": counts}
+    log("train_cli " + json.dumps(row))
+    if (not exact or final_step != TRAIN_CLI_STEPS or counts != [TRAIN_CLI_STEPS] * 2
+            or not resumed["resumed_from_logged"]
+            or first["launches"] != 10 * TRAIN_CLI_STEPS
+            or resumed["launches"] != 10 * (TRAIN_CLI_STEPS - 2)
+            or not np.isfinite(first["final_loss"]) or not np.isfinite(resumed["final_loss"])):
+        fail(f"cli train did not snapshot and resume exactly: {row}")
+    return row
+
+
+def phase_train(torch, attn, layers, tmp, video, card):
+    """Phase 16: the training path (a)-(e)."""
+    from tvc_torch.core.runtime import numerics
+
+    before = numerics()
+    rows = {"attention": phase_train_attention(torch, attn)}
+    rows["step"], ref = phase_train_step(torch, attn, layers)
+    rows["ddp"] = phase_train_ddp(torch, attn, layers, ref)
+    del ref
+    torch.cuda.empty_cache()
+    rows["cli"] = phase_train_cli(torch, tmp, video)
+    after = numerics()
+    if after != before:
+        fail(f"training changed the backend flags: {before} -> {after}")
+    rows["numerics_unchanged"] = True
+
+    # the attention's share of a B = 8 step: per UNet call, 10 forwards and 10 backwards
+    b8 = [r for r in rows["attention"] if r["B"] == TRAIN_BATCH]
+    fwd = sum(r["fwd_ms"] * r["per_unet_call"] for r in b8)
+    bwd = sum(r["bwd_ms"] * r["per_unet_call"] for r in b8)
+    step_s = min(rows["step"]["step_s"])
+    rows["summary"] = {
+        "card": card, "batch": TRAIN_BATCH, "step_s": step_s,
+        "conv_algorithms": rows["step"]["conv_algorithms"],
+        "attention_fwd_ms_per_step": fwd, "attention_bwd_ms_per_step": bwd,
+        "attention_share_of_step": (fwd + bwd) / 1e3 / step_s,
+        "attention_bwd_share_of_step": bwd / 1e3 / step_s,
+        "peak_mem_gb_in_process": rows["step"]["peak_mem_gb"],
+        "peak_mem_gb_cli": rows["cli"]["first"]["peak_mem_gb"],
+        "cli_s_per_step_after_first": rows["cli"]["first"]["s_per_step_after_first"]}
+    log("train_summary " + json.dumps(rows["summary"]))
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -1491,6 +1818,10 @@ def main() -> None:
     t15 = time.perf_counter()
     samplers, sampler_launches = phase_samplers(torch, attn, predictor, coder, lpips, video)
     samplers_s = time.perf_counter() - t15
+    t16 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        training = phase_train(torch, attn, layers, tmp, video, card)
+    training_s = time.perf_counter() - t16
     path_launches = {"run_gop": gop["attention_launches"],
                      "device_gop": device_gop["attention_launches"],
                      "fused_run": fused["attention_launches"],
@@ -1502,7 +1833,11 @@ def main() -> None:
                      "run_sweep_run_gop": seq["run_gop"]["attention_launches"],
                      "run_sweep_device_gop": seq["device_gop"]["attention_launches"],
                      "cli_sweep_fvd": evaluation["sweep"]["attention_launches"],
-                     **sampler_launches}
+                     **sampler_launches,
+                     "train_step": training["step"]["launches"],
+                     "train_ddp_step": training["ddp"]["launches"],
+                     "cli_train": training["cli"]["first"]["launches"],
+                     "cli_train_resumed": training["cli"]["resumed"]["launches"]}
     log("launches " + json.dumps(path_launches))
     main_launches = sum(path_launches.values())
     if min(path_launches.values()) <= 0:
@@ -1553,6 +1888,7 @@ def main() -> None:
         "sampler_gop_walls_s": {v: [samplers[v]["sender_wall_s"], samplers[v]["receiver_wall_s"]]
                                 for v in ("ddim", "fpndm")},
         "graphs": predictor.graphs.stats(),
+        "train_phase_s": training_s, "train": training["summary"],
         "numerics": numerics(),
         "total_s": time.perf_counter() - t_start}))
     kernels = [{

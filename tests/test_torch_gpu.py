@@ -403,3 +403,92 @@ def test_default_width_tvc_container_decodes_on_card(cuda):
           f"give tvc's symbols; x_hat within {out['x_hat_max_abs_diff']:.3g}")
     assert out["matched"] == out["streams"]
     assert out["x_hat_max_abs_diff"] <= 1e-4 * out["x_hat_max_abs"]
+
+
+# ---------------------------------------------------------------- training
+
+
+LEVELS = [(2, 1024), (3, 256), (4, 64)]  # (heads, tokens) at 32x32, 16x16, 8x8; d = 192
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("h,t", LEVELS, ids=["32x32", "16x16", "8x8"])
+def test_attention_gradient_matches_plain_autograd(cuda, h, t, b):
+    """Where autograd records, the kernel's output carries a grad_fn and its
+    dQ, dK, dV (``attention_backward``) match autograd through
+    ``attention_plain`` within 1e-4 of the gradient's magnitude (float32 sums
+    in another order; the backward reads the kernel's own output)."""
+    q, k, v = (x.requires_grad_() for x in _heads((b, h, t, 192), torch.float32, seed=3))
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dout = torch.randn((b, t, h, 192), generator=g, device="cuda").transpose(1, 2)
+    before = attn.launches
+    out = attn.attention(q, k, v)
+    assert attn.launches == before + 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert attn.launches == before + 1  # the backward is torch products, no launch
+    ref_out = attn.attention_plain(q, k, v)
+    want = torch.autograd.grad(ref_out, (q, k, v), dout)
+    assert (out - ref_out).abs().max().item() <= 1e-4
+    for a, w in zip(got, want):
+        assert (a - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+def test_full_width_train_step_kernel_matches_plain(cuda):
+    """The 262.1M UNet at B = 2: the DSM loss and every gradient through the
+    kernel against the same step with the plain attention (loss within 1e-5,
+    each gradient within 1e-3 of its magnitude or of a thousandth of the
+    largest); every attention block's GroupNorm_0 and NIN_0..2 get non-zero
+    gradients; one optimizer step moves the parameters and the EMA."""
+    from unittest import mock
+
+    from tvc_torch.losses.dsm import anneal_dsm_score_estimation, draw_dsm
+    from tvc_torch.models.diffusion import layers
+    from tvc_torch.parallel.train import make_train_step
+    from tvc_torch.samplers.schedules import Schedule
+
+    cfg = Config()
+    cfg.optim.warmup = 0  # with the default warmup the first update has lr 0
+    init_fn, step_fn = make_train_step(cfg, device="cuda")
+    state = init_fn(0)
+    layers.redraw_zero_scaled_(state.module, torch.Generator().manual_seed(1))
+    state.ema = {n: p.detach().clone() for n, p in state.params.items()}
+    size, c = cfg.data.image_size, cfg.data.channels
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batch = {"x": torch.rand((2, size, size, c * cfg.data.num_frames), generator=g,
+                             device="cuda") * 2 - 1,
+             "cond": torch.rand((2, size, size, c * cfg.data.num_frames_cond), generator=g,
+                                device="cuda") * 2 - 1}
+    labels, noise = draw_dsm(batch["x"].shape, Schedule.from_config(cfg),
+                             torch.Generator().manual_seed(6), device="cuda")
+
+    def grads():
+        state.module.zero_grad(set_to_none=True)
+        loss = anneal_dsm_score_estimation(lambda x, y, co, _m: state.model(x, y, co),
+                                           batch["x"], Schedule.from_config(cfg),
+                                           cond=batch["cond"], labels=labels, noise=noise)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in state.params.items()}
+
+    from tvc_torch.core.runtime import training_numerics
+
+    with training_numerics("cuda"):
+        loss, got = grads()
+        with mock.patch.object(layers, "attention", attn.attention_plain):
+            ref_loss, want = grads()
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    floor = 1e-3 * max(w.abs().max().item() for w in want.values())
+    attn_names = [n for n in want if any(f".{m}." in n for m in
+                                         ("GroupNorm_0", "NIN_0", "NIN_1", "NIN_2"))]
+    assert len(attn_names) == 10 * 8  # 10 blocks: GroupNorm_0 and NIN_0..2, weight and bias each
+    for n, w in want.items():
+        assert (got[n] - w).abs().max().item() <= 1e-3 * max(w.abs().max().item(), floor), n
+    for n in attn_names:
+        if not n.endswith("NIN_1.b"):  # softmax ignores a shift of every key's logit
+            assert got[n].abs().max().item() > 0, n
+    before = {n: p.detach().clone() for n, p in state.params.items()}
+    ema_before = {n: e.clone() for n, e in state.ema.items()}
+    state, step_loss = step_fn(state, batch, labels, noise)
+    assert torch.isfinite(step_loss)
+    moved = sum(not torch.equal(p, before[n]) for n, p in state.params.items())
+    ema_moved = sum(not torch.equal(e, ema_before[n]) for n, e in state.ema.items())
+    assert moved > 0 and ema_moved > 0

@@ -17,7 +17,9 @@ from tvc_torch.metrics.lpips import LPIPSMetric
 from tvc_torch.models.codec.elic import make_elic
 from tvc_torch.models.diffusion.ncsnpp import UNetMoreDDPM
 from tvc_torch.models.inception import FIDInceptionFeatures
+from tvc_torch.parallel.train import make_train_step
 from tvc_torch.pipeline.predictor import FramePredictor
+from tvc_torch.pipeline.train_loop import train
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -65,7 +67,8 @@ def test_sources_name_no_jax(path):
 
 
 @pytest.mark.parametrize("entry", ["unet", "predictor", "lpips", "coder", "fvd", "fid_inception",
-                                   "cli_codec", "cli_gop_send", "cli_gop_receive", "cli_sweep"])
+                                   "cli_codec", "cli_gop_send", "cli_gop_receive", "cli_sweep",
+                                   "train_step", "train_loop", "cli_train"])
 def test_default_device_raises_without_a_card(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a card; the default device is valid here")
@@ -82,9 +85,14 @@ def test_default_device_raises_without_a_card(entry, tmp_path):
             FVDMetric()
         elif entry == "fid_inception":
             FIDInceptionFeatures()
+        elif entry == "train_step":
+            make_train_step(Config())
+        elif entry == "train_loop":
+            train(Config(), np.zeros((1, 8, 64, 64, 3), np.float32), num_steps=1)
         else:
             frames = tmp_path / "frames.npy"
             np.save(frames, np.zeros((2, 64, 64, 3), np.float32))
+            np.save(tmp_path / "d.npy", np.zeros((1, 8, 3, 64, 64), np.uint8))
             cli.main({"cli_codec": ["codec", "--input-npy", str(frames)],
                       "cli_gop_send": ["gop", "send", "--video-npy", str(frames), "--payload",
                                        str(tmp_path / "p.tvcg"), "--allow-uncalibrated"],
@@ -92,7 +100,9 @@ def test_default_device_raises_without_a_card(entry, tmp_path):
                                           str(tmp_path / "p.tvcg")],
                       "cli_sweep": ["sweep", "--data-npy", str(frames), "--output-path",
                                     str(tmp_path / "out"), "--no-fvd",
-                                    "--allow-uncalibrated"]}[entry])
+                                    "--allow-uncalibrated"],
+                      "cli_train": ["train", "--data-npy", str(tmp_path / "d.npy"),
+                                    "--out-dir", str(tmp_path / "t"), "--steps", "1"]}[entry])
 
 
 _RANS_PROBE = """

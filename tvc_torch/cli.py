@@ -1,5 +1,5 @@
 """tvc_torch command-line interface (counterpart of ``tvc/cli.py``'s ``sweep``,
-``codec``, ``gop`` and ``anchors``).
+``codec``, ``gop``, ``anchors`` and ``train``).
 
     python -m tvc_torch.cli sweep --data-npy data.npy --output-path out \
         --i3d-ckpt i3d.pt --qualities 4 5 --batched 8   # rate sweep: points, envelopes, plots
@@ -13,6 +13,8 @@
     python -m tvc_torch.cli gop receive --payload gop.tvcg --output-npy receiver.npy
     python -m tvc_torch.cli anchors --data-npy data.npy --output out --preset city \
         --i3d-ckpt i3d.pt                          # H.264/H.265 anchors (needs ffmpeg)
+    python -m tvc_torch.cli train --data-npy data.npy --out-dir out --steps 1000 \
+        [--resume-from out/ckpt_500]               # DSM training, npz snapshots
 
 Every command runs on ``--device`` (``cuda`` by default; ``cpu`` on a host
 without a card). Configuration: ``--config`` YAML and ``--config-mod
@@ -489,9 +491,41 @@ def cmd_anchors(argv: List[str]) -> int:
     return 0
 
 
+def cmd_train(argv: List[str]) -> int:
+    ap = argparse.ArgumentParser(prog="tvc_torch train")
+    _add_common_args(ap)
+    ap.add_argument("--data-npy", required=True, help="(B,T,C,H,W) dataset npy")
+    ap.add_argument("--out-dir", required=True)
+    ap.add_argument("--steps", type=int, default=1000)
+    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--snapshot-freq", type=int, default=500)
+    ap.add_argument("--resume-from", type=str, default=None,
+                    help="snapshot path prefix from a previous run of this command or of "
+                         "the JAX package's (e.g. out/ckpt_500) to restore params/EMA/"
+                         "optimizer/step and continue until --steps")
+    args = ap.parse_args(argv)
+
+    cfg = _load_cfg(args)
+    from tvc_torch.ops import attention
+    from tvc_torch.pipeline.driver import load_dataset
+    from tvc_torch.pipeline.train_loop import train
+
+    data = load_dataset(args.data_npy)
+    metrics = train(cfg, data, num_steps=args.steps, batch_size=args.batch_size,
+                    snapshot_freq=args.snapshot_freq, out_dir=args.out_dir,
+                    resume_from=args.resume_from, device=args.device)
+    print(metrics)
+    print(f"[train] attention kernel launches: {attention.launches}", flush=True)
+    if torch.device(args.device).type == "cuda":
+        print(f"[train] peak device memory: {torch.cuda.max_memory_allocated() / 1e9} GB",
+              flush=True)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    cmds = {"sweep": cmd_sweep, "codec": cmd_codec, "gop": cmd_gop, "anchors": cmd_anchors}
+    cmds = {"sweep": cmd_sweep, "codec": cmd_codec, "gop": cmd_gop, "anchors": cmd_anchors,
+            "train": cmd_train}
     if not argv or argv[0] not in cmds:
         print(f"usage: python -m tvc_torch.cli {{{','.join(cmds)}}} ...")
         return 0 if argv and argv[0] in ("-h", "--help") else 1

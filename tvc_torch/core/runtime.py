@@ -98,6 +98,30 @@ def batched_conv_algorithms(batch: int, device):
         yield
 
 
+# Whether training lets cuDNN time its deterministic float32 algorithms
+# (chip_smoke.py phase 16b times a full-width B = 8 step both ways).
+TRAINING_TIMES_CONV_ALGORITHMS = True
+
+
+@contextlib.contextmanager
+def training_numerics(device):
+    """Float32 without TF32 for convolutions and matrix products, cuDNN's
+    deterministic algorithms, timed where ``TRAINING_TIMES_CONV_ALGORITHMS``
+    (training writes no bitstream); the backend flags are restored on exit,
+    so ``numerics()`` reads the same after training as before."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with torch.backends.cudnn.flags(enabled=True, benchmark=TRAINING_TIMES_CONV_ALGORITHMS,
+                                        deterministic=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+
+
 def to_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
     """A numpy array (copied) or tensor as ``dtype`` on ``device``."""
     if torch.is_tensor(x):

@@ -9,6 +9,13 @@ folding the heads back into channels is free. On a CUDA tensor it launches the
 hand-written Hopper kernel of ``tvc_torch/csrc/attention.cu`` (built on first
 use) or raises; on a CPU tensor it runs ``attention_plain``, the plain PyTorch
 version of the same function, which is also the kernel's oracle on the card.
+
+Where autograd records (grad mode on and an input that requires grad), the
+kernel runs inside ``KernelAttention``, whose backward is
+``attention_backward``: torch matrix products that recompute the softmax, as
+the JAX package differentiates ``attention_reference`` with XLA einsums
+outside any kernel. Under ``no_grad`` the kernel is launched bare and nothing
+is saved.
 """
 
 from __future__ import annotations
@@ -144,14 +151,49 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plan: AttentionPla
     return out
 
 
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                       dout: torch.Tensor):
+    """(dq, dk, dv) of attention at (q, k, v) given its output ``out`` and the
+    output's gradient ``dout``; any strides. Recomputes P = softmax(q k^T d^-1/2)
+    in float32, then dV = P^T dO, dS = P * (dO V^T - rowsum(dO * O)),
+    dQ = dS K d^-1/2 and dK = dS^T Q d^-1/2; each gradient in its input's dtype."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
+    p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    delta = (do * out.float()).sum(dim=-1, keepdim=True)
+    ds = p * (torch.matmul(do, vf.transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class KernelAttention(torch.autograd.Function):
+    """The kernel's forward (``launch`` at ``attention_plan``'s plan) with
+    ``attention_backward`` as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out = launch(q, k, v, attention_plan(*q.shape, q.dtype))
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return attention_backward(*ctx.saved_tensors, dout)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(B, H, T, d) fused attention: the CUDA kernel on the card, the plain
-    version for CPU tensors."""
+    """(B, H, T, d) fused attention: the CUDA kernel on the card (differentiable
+    through ``KernelAttention`` where autograd records), the plain version for
+    CPU tensors."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"attention runs on cuda or cpu tensors, got {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return KernelAttention.apply(q, k, v)
     return launch(q, k, v, attention_plan(*q.shape, q.dtype))
 
 

@@ -1,13 +1,19 @@
 """Time the full-width UNet at several batch sizes with cuDNN's heuristic
 choice of convolution algorithm and with its timed choice
 (``tvc_torch.core.runtime.batched_conv_algorithms``), each mode in a fresh
-process (cuDNN caches one choice per shape for a process).
+process (cuDNN caches one choice per shape for a process, whichever mode
+made it).
 
     python -m tvc_torch.tools.conv_algorithms [--batches 1 2 4 8] [--calls 5]
+    python -m tvc_torch.tools.conv_algorithms --train [--batches 8] [--calls 5]
 
 Prints one JSON line per (mode, batch): the first call's host seconds (the
 timing of the algorithms included), the mean ms of ``--calls`` calls by CUDA
-events, and whether two calls gave the same bits. Needs a card.
+events, and whether two calls gave the same bits. With ``--train`` a call is
+one DSM train step (forward, backward, clipping, Adam, EMA;
+``training_numerics`` with ``TRAINING_TIMES_CONV_ALGORITHMS`` set by the
+mode), timed by the host clock around synchronized steps, with the peak
+device memory of the first step and of the rest. Needs a card.
 """
 
 from __future__ import annotations
@@ -63,21 +69,61 @@ def _measure(mode: str, batches: List[int], calls: int) -> None:
                           "gpu": torch.cuda.get_device_name(0)}), flush=True)
 
 
+def _measure_train(mode: str, batches: List[int], calls: int) -> None:
+    import torch
+
+    from tvc_torch.core import runtime
+    from tvc_torch.core.config import Config
+    from tvc_torch.losses.dsm import draw_dsm
+    from tvc_torch.parallel.train import make_train_step
+    from tvc_torch.samplers.schedules import Schedule
+
+    runtime.set_numerics()
+    runtime.TRAINING_TIMES_CONV_ALGORITHMS = mode == "timed"
+    cfg = Config()
+    init_fn, step_fn = make_train_step(cfg, device="cuda")
+    state = init_fn(0)
+    size, c = cfg.data.image_size, cfg.data.channels
+    for b in batches:
+        g = torch.Generator(device="cuda").manual_seed(b)
+        batch = {"x": torch.randn((b, size, size, c * cfg.data.num_frames), generator=g,
+                                  device="cuda"),
+                 "cond": torch.rand((b, size, size, c * cfg.data.num_frames_cond), generator=g,
+                                    device="cuda")}
+        labels, noise = draw_dsm(batch["x"].shape, Schedule.from_config(cfg),
+                                 torch.Generator().manual_seed(b), device="cuda")
+        times, peaks = [], []
+        for _ in range(calls + 1):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            step_fn(state, batch, labels, noise)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        print(json.dumps({"mode": mode, "train_step": True, "batch": b,
+                          "first_step_s": times[0], "step_s": times[1:],
+                          "first_step_peak_mem_gb": peaks[0], "peak_mem_gb": max(peaks[1:]),
+                          "gpu": torch.cuda.get_device_name(0)}), flush=True)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m tvc_torch.tools.conv_algorithms")
     ap.add_argument("--batches", nargs="*", type=int, default=[1, 2, 4, 8])
     ap.add_argument("--calls", type=int, default=5)
+    ap.add_argument("--train", action="store_true", help="time train steps, not forwards")
     ap.add_argument("--mode", choices=MODES, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.mode:
-        _measure(args.mode, args.batches, args.calls)
+        (_measure_train if args.train else _measure)(args.mode, args.batches, args.calls)
         return 0
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     rc = 0
     for mode in MODES:
         proc = subprocess.run([sys.executable, "-m", "tvc_torch.tools.conv_algorithms",
                                "--mode", mode, "--calls", str(args.calls), "--batches",
-                               *map(str, args.batches)], cwd=root, timeout=1800)
+                               *map(str, args.batches), *(["--train"] if args.train else [])],
+                              cwd=root, timeout=1800)
         rc = rc or proc.returncode
     return rc
 
