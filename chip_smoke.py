@@ -112,9 +112,14 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
     tvc_torch.cli train`` at full width, B = 8, in a fresh process (3 steps,
     a snapshot at step 2), then a second process resumed from that snapshot
     to step 3 (the snapshot must load bit for bit, the resumed optimizer
-    count 3); (d) phase 16b's first step under a world-size-1 NCCL group
+    count 3), and ``train_loop.train`` in this process, 6 steps with a loss
+    line each and 6 with the loss read after the first and the last, its
+    steps timed against (b)'s bare steps; (d) phase 16b's first step under a world-size-1 NCCL group
     (DDP), which must equal it; (e) ``numerics()`` the same after the phase
-    as before it.
+    as before it, phase 15a's eager B = 1 update rerun after training equal
+    to it byte for byte, and a fresh process that takes a B = 1 train step
+    before its first B = 1 UNet call giving this process's bytes for that
+    call (training times cuDNN's algorithms only at B > 1).
 
 Every path above (7, 8, 10-16) must launch the attention kernel 1010 times per
 DDPM or DDIM update or lockstep sweep (F-PNDM 1090, the warm start 960), 10 per
@@ -1294,6 +1299,9 @@ def phase_samplers(torch, attn, predictor, coder, lpips, video):
                  "replays_in_update": entry.replays - replays,
                  "byte_identical": graphed.cpu().numpy().tobytes() ==
                  eager.cpu().numpy().tobytes()}
+        if b == 1:  # phase 16e reruns this update after training
+            b1_update = {"cond": cond, "x_init": x_init, "noise": noise,
+                         "frames": eager.cpu().numpy().tobytes()}
         log(f"graph_vs_eager B={b} " + json.dumps(ab[b]))
         if ab[b]["replays_in_update"] != predictor.n_steps:
             fail(f"B = {b}: the update replayed its UNet graph {ab[b]['replays_in_update']} "
@@ -1302,6 +1310,7 @@ def phase_samplers(torch, attn, predictor, coder, lpips, video):
             fail(f"B = {b}: the graphed update differs from the eager loop")
     launches["graph_vs_eager"] = attn.launches
     rows["graph_vs_eager"] = ab
+    rows["b1_update"] = b1_update
 
     # (c) DDIM and F-PNDM GOPs, received in fresh processes
     cond1 = video[0, :2].transpose(1, 2, 0, 3).reshape(1, 128, 128, 6)
@@ -1430,6 +1439,7 @@ def phase_samplers(torch, attn, predictor, coder, lpips, video):
 
 TRAIN_BATCH = 8       # phase 16: the CLI's default batch
 TRAIN_CLI_STEPS = 3   # phase 16c: steps of the first train process (snapshot at step 2)
+TRAIN_LOOP_STEPS = 6  # phase 16c: steps of each in-process loop
 ATTN_GRAD_TOL = 1e-4  # (a) max |kernel grad - plain grad| / max |plain grad|, float32
 TRAIN_GRAD_TOL = 1e-3  # (b) each gradient, against its magnitude or 1e-3 of the largest
 DDP_LR_TOL = 2e-3     # (d) max |DDP step - plain step| of a parameter, in units of lr
@@ -1507,8 +1517,8 @@ def phase_train_step(torch, attn, layers):
     (phase 16d's reference)."""
     from unittest import mock
 
-    from tvc_torch.core import runtime
     from tvc_torch.core.config import Config
+    from tvc_torch.core.runtime import batched_conv_algorithms
     from tvc_torch.losses.dsm import anneal_dsm_score_estimation
     from tvc_torch.samplers.schedules import Schedule
 
@@ -1528,7 +1538,7 @@ def phase_train_step(torch, attn, layers):
         loss.backward()
         return loss.item(), {n: p.grad.clone() for n, p in state.params.items()}
 
-    with runtime.training_numerics("cuda"):
+    with batched_conv_algorithms(TRAIN_BATCH, "cuda"):  # as step_fn runs it
         loss, got = grads()
         with mock.patch.object(layers, "attention", attn.attention_plain):
             ref_loss, want = grads()
@@ -1581,7 +1591,6 @@ def phase_train_step(torch, attn, layers):
     torch.cuda.reset_peak_memory_stats()
     row["step_s"] = [step_s() for _ in range(3)]
     row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    row["conv_algorithms"] = "timed" if runtime.TRAINING_TIMES_CONV_ALGORITHMS else "heuristic"
     row["launches"] = attn.launches
     if attn.launches != 10 * (1 + 3):
         fail(f"four full-width train steps launched {attn.launches} attention kernels, not 40")
@@ -1658,6 +1667,73 @@ def train_process(args, tag):
     return row
 
 
+def train_dataset(tmp, video):
+    """Phase 16c's seeded dataset npy: 2 videos of 12 frames, (B, T, C, H, W)."""
+    data = os.path.join(tmp, "train.npy")
+    if not os.path.exists(data):
+        frames = (np.clip(video[0, :12], 0, 1) * 255).astype(np.uint8).transpose(0, 3, 1, 2)
+        np.save(data, np.stack([frames, frames[::-1]]))
+    return data
+
+
+def phase_train_loop(torch, attn, tmp, video, step_s):
+    """Phase 16c, in process: ``train_loop.train`` at B = 8 for
+    TRAIN_LOOP_STEPS steps, twice. With a loss line every step, each step
+    ends in a host read: its steps are timed from one call of the step to
+    the next (the loop's clip batch, transfer and draws included). With the
+    loss read only after the first step and at the end, the host assembles
+    the next clip batch while the card runs the step: timed from the second
+    step's call to the loop's return. Both against phase 16b's bare
+    synchronized steps ``step_s`` in this process, beside the host's time to
+    assemble one clip batch."""
+    from unittest import mock
+
+    from tvc_torch.core.config import Config
+    from tvc_torch.pipeline import train_loop
+    from tvc_torch.pipeline.driver import load_dataset
+
+    data = load_dataset(train_dataset(tmp, video))
+    entries = []
+    make = train_loop.make_train_step
+
+    def timed_make(*args, **kwargs):
+        init_fn, step_fn = make(*args, **kwargs)
+
+        def step(*step_args):
+            entries.append(time.perf_counter())
+            return step_fn(*step_args)
+
+        return init_fn, step
+
+    row = {"steps": TRAIN_LOOP_STEPS, "bare_step_s": step_s}
+    attn.reset_launches()
+    with mock.patch.object(train_loop, "make_train_step", timed_make):
+        for name, log_freq in (("synchronized", 1), ("overlapped", 10 ** 6)):
+            entries.clear()
+            result = train_loop.train(Config(), data, num_steps=TRAIN_LOOP_STEPS,
+                                      batch_size=TRAIN_BATCH, log_freq=log_freq, device="cuda")
+            end = time.perf_counter()
+            if name == "synchronized":
+                row["synchronized_step_s"] = np.diff(entries)[1:].tolist()
+            else:
+                row["overlapped_step_s"] = (end - entries[1]) / (TRAIN_LOOP_STEPS - 1)
+            row[f"{name}_final_loss"] = result["final_loss"]
+    row["launches"] = attn.launches
+    batches = train_loop.clip_batches(data, Config(), TRAIN_BATCH, np.random.RandomState(0))
+    row["clip_batch_host_s"] = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        next(batches)
+        row["clip_batch_host_s"].append(time.perf_counter() - t0)
+    row["synchronized_minus_bare_s"] = min(row["synchronized_step_s"]) - min(step_s)
+    row["overlapped_minus_bare_s"] = row["overlapped_step_s"] - min(step_s)
+    log("train_loop " + json.dumps(row))
+    if (attn.launches != 2 * 10 * TRAIN_LOOP_STEPS
+            or not np.isfinite([row["synchronized_final_loss"], row["overlapped_final_loss"]]).all()):
+        fail(f"the in-process train loop: {row}")
+    return row
+
+
 def phase_train_cli(torch, tmp, video):
     """Phase 16c: ``cli train`` at full width, B = 8, on a seeded dataset:
     TRAIN_CLI_STEPS steps with a snapshot at step 2, then a fresh process
@@ -1667,9 +1743,7 @@ def phase_train_cli(torch, tmp, video):
     from tvc_torch.parallel.train import make_train_step
     from tvc_torch.utils.checkpoint_io import load_train_state
 
-    data = os.path.join(tmp, "train.npy")
-    frames = (np.clip(video[0, :12], 0, 1) * 255).astype(np.uint8).transpose(0, 3, 1, 2)
-    np.save(data, np.stack([frames, frames[::-1]]))  # (2 videos, 12, C, H, W)
+    data = train_dataset(tmp, video)
     first_dir, resumed_dir = os.path.join(tmp, "train"), os.path.join(tmp, "train_resumed")
     common = ["--data-npy", data, "--batch-size", str(TRAIN_BATCH), "--steps",
               str(TRAIN_CLI_STEPS)]
@@ -1690,7 +1764,9 @@ def phase_train_cli(torch, tmp, video):
     with np.load(os.path.join(resumed_dir, "ckpt_final.opt.npz")) as f:
         counts = [int(f["count"]), int(f["adam_count"])]
     final_step = int(np.load(os.path.join(resumed_dir, "ckpt_final.step.npy")))
-    # the loop's wall holds its snapshots' writes (4.2 GB each): take them out
+    # the wall after the first step less the snapshots' writes (4.2 GB each),
+    # per step: a snapshot's timer also holds the device's tail of the step
+    # before it, so these are not synchronized steps (phase_train_loop's are)
     n = TRAIN_CLI_STEPS
     first["s_per_step_after_first"] = (first["wall_time_s"] - first["first_step_s"]
                                        - sum(first["snapshot_s"])) / (n - 1)
@@ -1706,7 +1782,77 @@ def phase_train_cli(torch, tmp, video):
     return row
 
 
-def phase_train(torch, attn, layers, tmp, video, card):
+TRAIN_THEN_PREDICT = "--train-then-predict"  # phase 16e's fresh process
+
+
+def unet_b1(torch, predictor):
+    """One B = 1 call of the predictor's UNet on seeded inputs, as bytes."""
+    cfg = predictor.cfg
+    size, c = cfg.data.image_size, cfg.data.channels
+    g = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn((1, size, size, c * cfg.data.num_frames), generator=g, device="cuda")
+    cond = torch.rand((1, size, size, c * cfg.data.num_frames_cond), generator=g,
+                      device="cuda")
+    with torch.no_grad():
+        return predictor.model(x, torch.full((1,), 500, device="cuda"), cond).cpu().numpy().tobytes()
+
+
+def train_then_predict(torch, out):
+    """Phase 16e's fresh process: one full-width train step at B = 1 (cuDNN
+    chooses the algorithms of the B = 1 forward shapes here, in training),
+    then ``unet_b1`` of the seeded predictor, written to ``out``."""
+    import tvc_torch.cli as cli
+    from tvc_torch.core.config import Config
+    from tvc_torch.parallel.train import make_train_step
+
+    cfg = Config()
+    predictor = cli.build_predictor(cfg, "cuda")
+    init_fn, step_fn = make_train_step(cfg, device="cuda")
+    state = init_fn(0)
+    batch, labels, noise = train_inputs(torch, cfg, 1)
+    _, loss = step_fn(state, batch, labels, noise)
+    if not torch.isfinite(loss):
+        fail("the B = 1 train step's loss is not finite")
+    del state
+    with open(out, "wb") as f:
+        f.write(unet_b1(torch, predictor))
+
+
+def phase_train_b1(torch, attn, tmp, predictor, b1_update):
+    """Phase 16e's bits: phase 15a's B = 1 update rerun after training, and a
+    fresh process that trains at B = 1 before its first B = 1 UNet call; both
+    must give this process's bytes (training leaves B = 1 on the heuristic
+    algorithms a receiver uses)."""
+    attn.reset_launches()
+    again = eager_generate(predictor, b1_update["cond"], b1_update["x_init"], b1_update["noise"])
+    launches = attn.launches
+    out = os.path.join(tmp, "trained_b1.bin")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                           TRAIN_THEN_PREDICT, out], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    wall = time.perf_counter() - t0
+    for line in (proc.stdout + proc.stderr).strip().splitlines():
+        log("  train then predict| " + line)
+    if proc.returncode != 0:
+        fail(f"the train-then-predict process exited {proc.returncode}")
+    with open(out, "rb") as f:
+        fresh = f.read()
+    row = {"update_after_training_identical": again.cpu().numpy().tobytes() ==
+           b1_update["frames"], "launches": launches,
+           "fresh_process_trained_b1_unet_identical": fresh == unet_b1(torch, predictor),
+           "fresh_process_wall_s": wall}
+    log("train_b1 " + json.dumps(row))
+    if not row["update_after_training_identical"]:
+        fail("phase 15a's B = 1 update gave other bytes after training")
+    if launches != 1010:
+        fail(f"the B = 1 update after training launched {launches} attention kernels, not 1010")
+    if not row["fresh_process_trained_b1_unet_identical"]:
+        fail("a process that trained at B = 1 first predicts B = 1 with other bytes")
+    return row
+
+
+def phase_train(torch, attn, layers, tmp, video, card, predictor, b1_update):
     """Phase 16: the training path (a)-(e)."""
     from tvc_torch.core.runtime import numerics
 
@@ -1717,10 +1863,12 @@ def phase_train(torch, attn, layers, tmp, video, card):
     del ref
     torch.cuda.empty_cache()
     rows["cli"] = phase_train_cli(torch, tmp, video)
+    rows["loop"] = phase_train_loop(torch, attn, tmp, video, rows["step"]["step_s"])
     after = numerics()
     if after != before:
         fail(f"training changed the backend flags: {before} -> {after}")
     rows["numerics_unchanged"] = True
+    rows["b1"] = phase_train_b1(torch, attn, tmp, predictor, b1_update)
 
     # the attention's share of a B = 8 step: per UNet call, 10 forwards and 10 backwards
     b8 = [r for r in rows["attention"] if r["B"] == TRAIN_BATCH]
@@ -1729,13 +1877,14 @@ def phase_train(torch, attn, layers, tmp, video, card):
     step_s = min(rows["step"]["step_s"])
     rows["summary"] = {
         "card": card, "batch": TRAIN_BATCH, "step_s": step_s,
-        "conv_algorithms": rows["step"]["conv_algorithms"],
         "attention_fwd_ms_per_step": fwd, "attention_bwd_ms_per_step": bwd,
         "attention_share_of_step": (fwd + bwd) / 1e3 / step_s,
         "attention_bwd_share_of_step": bwd / 1e3 / step_s,
         "peak_mem_gb_in_process": rows["step"]["peak_mem_gb"],
         "peak_mem_gb_cli": rows["cli"]["first"]["peak_mem_gb"],
-        "cli_s_per_step_after_first": rows["cli"]["first"]["s_per_step_after_first"]}
+        "cli_s_per_step_after_first": rows["cli"]["first"]["s_per_step_after_first"],
+        "loop_synchronized_step_s": rows["loop"]["synchronized_step_s"],
+        "loop_overlapped_step_s": rows["loop"]["overlapped_step_s"]}
     log("train_summary " + json.dumps(rows["summary"]))
     return rows
 
@@ -1746,6 +1895,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the card only")
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == [TRAIN_THEN_PREDICT]:
+        train_then_predict(torch, sys.argv[2])
+        return
     from tvc_torch.core.config import Config
     from tvc_torch.core.runtime import numerics, set_numerics
     from tvc_torch.metrics.lpips import LPIPSMetric
@@ -1820,7 +1972,8 @@ def main() -> None:
     samplers_s = time.perf_counter() - t15
     t16 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        training = phase_train(torch, attn, layers, tmp, video, card)
+        training = phase_train(torch, attn, layers, tmp, video, card, predictor,
+                               samplers["b1_update"])
     training_s = time.perf_counter() - t16
     path_launches = {"run_gop": gop["attention_launches"],
                      "device_gop": device_gop["attention_launches"],
@@ -1837,7 +1990,9 @@ def main() -> None:
                      "train_step": training["step"]["launches"],
                      "train_ddp_step": training["ddp"]["launches"],
                      "cli_train": training["cli"]["first"]["launches"],
-                     "cli_train_resumed": training["cli"]["resumed"]["launches"]}
+                     "cli_train_resumed": training["cli"]["resumed"]["launches"],
+                     "train_loop": training["loop"]["launches"],
+                     "b1_update_after_training": training["b1"]["launches"]}
     log("launches " + json.dumps(path_launches))
     main_launches = sum(path_launches.values())
     if min(path_launches.values()) <= 0:

@@ -469,9 +469,9 @@ def test_full_width_train_step_kernel_matches_plain(cuda):
         loss.backward()
         return loss.item(), {n: p.grad.clone() for n, p in state.params.items()}
 
-    from tvc_torch.core.runtime import training_numerics
+    from tvc_torch.core.runtime import batched_conv_algorithms
 
-    with training_numerics("cuda"):
+    with batched_conv_algorithms(2, "cuda"):  # as step_fn runs it
         loss, got = grads()
         with mock.patch.object(layers, "attention", attn.attention_plain):
             ref_loss, want = grads()

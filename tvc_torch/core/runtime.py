@@ -86,7 +86,8 @@ def batched_conv_algorithms(batch: int, device):
     67-75 ms after timing (``python -m tvc_torch.tools.conv_algorithms``).
     Only the in-process batched paths (the lockstep runner, the whole-GOP
     sender's ``run_batched``) predict at B > 1, and no receiver repeats their
-    frames. cuDNN caches its choice per shape
+    frames; training, which writes no bitstream, enters it at its
+    per-process batch. cuDNN caches its choice per shape
     for the process, so a rerun is bit-identical; another process may choose
     another algorithm where two are about as fast. B = 1, which a receiver
     repeats, is untouched: the choice is keyed by the batch size."""
@@ -96,30 +97,6 @@ def batched_conv_algorithms(batch: int, device):
     with torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=True,
                                     allow_tf32=False):
         yield
-
-
-# Whether training lets cuDNN time its deterministic float32 algorithms
-# (chip_smoke.py phase 16b times a full-width B = 8 step both ways).
-TRAINING_TIMES_CONV_ALGORITHMS = True
-
-
-@contextlib.contextmanager
-def training_numerics(device):
-    """Float32 without TF32 for convolutions and matrix products, cuDNN's
-    deterministic algorithms, timed where ``TRAINING_TIMES_CONV_ALGORITHMS``
-    (training writes no bitstream); the backend flags are restored on exit,
-    so ``numerics()`` reads the same after training as before."""
-    if torch.device(device).type != "cuda":
-        yield
-        return
-    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
-    try:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        with torch.backends.cudnn.flags(enabled=True, benchmark=TRAINING_TIMES_CONV_ALGORITHMS,
-                                        deterministic=True, allow_tf32=False):
-            yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
 
 
 def to_tensor(x, device, dtype=torch.float32) -> torch.Tensor:

@@ -81,9 +81,11 @@ class Optimizer:
         if not self.grad_clip or self.grad_clip <= 0:
             return
         norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
-        if not norm.item() < self.grad_clip:
-            torch._foreach_div_(grads, norm)
-            torch._foreach_mul_(grads, self.grad_clip)
+        # g / 1 * 1 where the norm is below max, else g / norm * max; no host read
+        keep = norm < self.grad_clip
+        one = torch.ones_like(norm)
+        torch._foreach_div_(grads, torch.where(keep, one, norm))
+        torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(norm, self.grad_clip)))
 
     @torch.no_grad()
     def step_(self, params: Tensors, grads: Tensors, state: Tensors) -> None:

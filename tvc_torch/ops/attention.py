@@ -184,17 +184,15 @@ class KernelAttention(torch.autograd.Function):
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(B, H, T, d) fused attention: the CUDA kernel on the card (differentiable
-    through ``KernelAttention`` where autograd records), the plain version for
-    CPU tensors."""
+    """(B, H, T, d) fused attention: the CUDA kernel on the card, through
+    ``KernelAttention`` (which saves nothing where autograd does not record),
+    the plain version for CPU tensors."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"attention runs on cuda or cpu tensors, got {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return KernelAttention.apply(q, k, v)
-    return launch(q, k, v, attention_plan(*q.shape, q.dtype))
+    return KernelAttention.apply(q, k, v)
 
 
 def kernel_info(dtype: torch.dtype, d: int, splits: int) -> dict:

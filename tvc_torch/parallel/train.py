@@ -8,8 +8,11 @@ averages the gradients over the data axis, as the JAX package's psum does;
 clipping, the optimizer and the EMA then run on the averaged gradients. The
 EMA is a copy of the parameters of its own.
 
-Training is float32 (``training_numerics``): ``dtype=torch.bfloat16``
-raises, as the predictor does. The model has no dropout layer, and the JAX
+Training is float32 without TF32 (the package's numerics), on cuDNN's
+timed deterministic algorithms where a process's batch is more than one
+(``batched_conv_algorithms``: a batch of one keeps the heuristic choice that
+a receiver's B = 1 predictions repeat); ``dtype=torch.bfloat16`` raises, as
+the predictor does. The model has no dropout layer, and the JAX
 package's step runs its UNet with dropout off.
 """
 
@@ -24,7 +27,7 @@ import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
 from tvc_torch.core.config import Config
-from tvc_torch.core.runtime import resolve_device, training_numerics
+from tvc_torch.core.runtime import batched_conv_algorithms, resolve_device
 from tvc_torch.losses.dsm import anneal_dsm_score_estimation, draw_dsm
 from tvc_torch.losses.ema import ema_update
 from tvc_torch.losses.optimizers import get_optimizer
@@ -91,7 +94,7 @@ def make_train_step(cfg: Config, mesh: Optional[Mesh] = None, dtype=torch.float3
         params = state.params
         for p in params.values():
             p.grad = None
-        with training_numerics(dev):
+        with batched_conv_algorithms(batch["x"].shape[0], dev):
             loss = anneal_dsm_score_estimation(
                 lambda x, y, c, _mask: state.model(x, y, c), batch["x"], schedule,
                 cond=batch["cond"], gamma=cfg.model.gamma, labels=labels, noise=noise)

@@ -8,9 +8,10 @@ slice of every global batch).
 Data: a (B, T, H, W, C) [0, 1] array (``load_dataset`` of a (B, T, C, H, W)
 npy); each step samples random clips of num_frames_cond + num_frames
 consecutive frames from a ``np.random.RandomState``, the same clips as the
-JAX package's loop. The DSM draws come from a ``torch.Generator`` seeded
-from ``cfg.seed`` (``cfg.seed + start_step`` on resume), where the JAX
-package splits a key.
+JAX package's loop. The DSM draws come from a ``torch.Generator`` on the
+device, seeded from ``cfg.seed`` (``cfg.seed + start_step`` on resume),
+where the JAX package splits a key: every process draws the global batch's
+draws alike (cards of one kind give the same draws) and keeps its slice.
 """
 
 from __future__ import annotations
@@ -94,7 +95,7 @@ def train(
         batches = clip_batches(data, cfg, batch_size,
                                np.random.RandomState(cfg.seed + start_step))
         print(f"[train] resumed from {resume_from} at step {start_step}")
-    generator = torch.Generator().manual_seed(cfg.seed + start_step)
+    generator = torch.Generator(dev).manual_seed(cfg.seed + start_step)
 
     def snapshot(name: str, step: int) -> None:
         if mesh.rank == 0:

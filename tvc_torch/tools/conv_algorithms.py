@@ -10,10 +10,11 @@ made it).
 Prints one JSON line per (mode, batch): the first call's host seconds (the
 timing of the algorithms included), the mean ms of ``--calls`` calls by CUDA
 events, and whether two calls gave the same bits. With ``--train`` a call is
-one DSM train step (forward, backward, clipping, Adam, EMA;
-``training_numerics`` with ``TRAINING_TIMES_CONV_ALGORITHMS`` set by the
-mode), timed by the host clock around synchronized steps, with the peak
-device memory of the first step and of the rest. Needs a card.
+one DSM train step (forward, backward, clipping, Adam, EMA), which enters
+``batched_conv_algorithms`` at its batch (the heuristic mode patches that
+to do nothing in its own process), timed by the host clock around
+synchronized steps, with the peak device memory of the first step and of
+the rest. Needs a card.
 """
 
 from __future__ import annotations
@@ -70,16 +71,22 @@ def _measure(mode: str, batches: List[int], calls: int) -> None:
 
 
 def _measure_train(mode: str, batches: List[int], calls: int) -> None:
+    import contextlib
+    from unittest import mock
+
     import torch
 
-    from tvc_torch.core import runtime
     from tvc_torch.core.config import Config
+    from tvc_torch.core.runtime import set_numerics
     from tvc_torch.losses.dsm import draw_dsm
+    from tvc_torch.parallel import train
     from tvc_torch.parallel.train import make_train_step
     from tvc_torch.samplers.schedules import Schedule
 
-    runtime.set_numerics()
-    runtime.TRAINING_TIMES_CONV_ALGORITHMS = mode == "timed"
+    set_numerics()
+    if mode == "heuristic":
+        mock.patch.object(train, "batched_conv_algorithms",
+                          lambda *_: contextlib.nullcontext()).start()
     cfg = Config()
     init_fn, step_fn = make_train_step(cfg, device="cuda")
     state = init_fn(0)
