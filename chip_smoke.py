@@ -4,7 +4,8 @@
 byte by a receiver in a fresh process; then the serving paths, the rate
 sweep, the evaluation path (FVD, LPIPS backbones, FID, the anchors), and
 the sampler layer (DDIM, F-PNDM, every DDPM option, the Langevin samplers)
-with every prediction replayed as a CUDA graph, and the training path.
+with every prediction replayed as a CUDA graph, the training path, and the
+bf16 throughput path with its harness.
 
     python3 chip_smoke.py
 
@@ -46,16 +47,16 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 9. the keyframe pair through the simulation coder (``code_frames(exact=False)``)
    and ``ELICModel.inference``: times, and their bits against the exact coder's;
 10. the whole-GOP sender (``FusedGOPSender``): ``run`` over the 30 frames with
-    forced accepts [0, 5, 5, 5, 5, 5, 1], and ``run_batched`` on 2 chains of 12
+    forced accepts [0, 5, 5, 5, 5, 5, 1], and ``run_batched`` on 2 chains of 10
     frames (chain 0's third update and those after it decided by LPIPS, the
     rest forced), which must take ``run``'s decisions and bits per chain, its
     frames within 1e-4, and whose rerun must be bit-identical;
-11. ``BatchedGOPRunner`` at ``batch_size=8`` on 8 jobs of 12 frames: sweeps,
+11. ``BatchedGOPRunner`` at ``batch_size=8`` on 8 jobs of 10 frames: sweeps,
     per-sweep times, the UNet at B = 8, launches, and the peak memory of the
     first run (cuDNN times its algorithms there) and of the rerun (it reuses
     them); the rerun must be bit-identical;
 12. ``python -m tvc_torch.cli sweep --device cuda --batched 4`` in two fresh
-    processes on a 1-video uint8 dataset, with two codec checkpoints written
+    processes on a 1-video uint8 dataset of 7 frames, with two codec checkpoints written
     here from seeded weights (q0's last g_a conv scaled down so that its GOPs
     code under 1 bpp, q1 as drawn): each must write ``points.json`` with q0's
     points, the npy envelopes and ``config.yml``, and launch 1010 kernels per
@@ -121,7 +122,22 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
     before its first B = 1 UNet call giving this process's bytes for that
     call (training times cuDNN's algorithms only at B > 1).
 
-Every path above (7, 8, 10-16) must launch the attention kernel 1010 times per
+17. the bf16 throughput path: (a) the full-width UNet in bf16 on
+    bf16-stored weights at B = 1 and 8: 10 kernel launches a call in bf16,
+    the kernel against the plain attention inside it, the eps error against
+    float32 on the same weights and inputs, ms per call as a replayed graph
+    against float32, and a profile (the convolutions' share of the device
+    time against float32's); (b) in bf16 at B = 1, one update through the
+    graph against the eager loop, and a 12-frame GOP through
+    ``DeviceGOPRunner`` against ``run_gop``, byte for byte; (c) the ``f32:K``
+    schedule over the float32 masters: ``f32:101`` equal to the float32
+    update and ``f32:0`` equal to the bf16 update (bf16-stored weights) bit
+    for bit, and the walls of ``f32:10``, bf16 and float32 updates; (d) the
+    harness ``python -m tvc_torch.bench.throughput`` in a fresh process (100
+    steps, bf16), then ``--dtype f32 --quick``, each ending in ``bench.py``'s
+    last line.
+
+Every path above (7, 8, 10-17) must launch the attention kernel 1010 times per
 DDPM or DDIM update or lockstep sweep (F-PNDM 1090, the warm start 960), 10 per
 train step; the ``kernels`` line sums their launches.
 
@@ -700,7 +716,7 @@ def phase_sim_codec(torch, coder, video):
 
 
 FUSED_FORCED = [0, 5, 5, 5, 5, 5, 1]
-BATCH_FRAMES = 12  # depth of phases 10 (run_batched) and 11, cut from 30 for time
+BATCH_FRAMES = 10  # depth of phases 10 (run_batched), 11 and 14d-e, cut from 30 for time
 
 
 def phase_fused(torch, attn, predictor, coder, lpips, video):
@@ -818,7 +834,7 @@ def phase_batched(torch, attn, predictor, coder, lpips):
         fail(f"BatchedGOPRunner launched {launches}, not {per_update} x {stats['sweeps']}")
     if any(w[0].x_ge.shape != (1, BATCH_FRAMES, 128, 128, 3) or not np.isfinite(w[0].x_ge).all()
            for w in results):
-        fail("BatchedGOPRunner's frames are not 12 finite frames")
+        fail(f"BatchedGOPRunner's frames are not {BATCH_FRAMES} finite frames")
     return row
 
 
@@ -828,8 +844,9 @@ SWEEP_THRESHOLDS = ("1e9", str(GOP_THRESHOLD))
 
 def write_sweep_inputs(torch, tmp, video):
     """Codec checkpoints q0 and q1 (the weights the CLI would draw for quality
-    q, q0's last g_a conv scaled down) and a 1-video uint8 dataset of the
-    video's first 12 frames, under ``tmp``."""
+    q, q0's last g_a conv scaled down), a 1-video uint8 dataset of the video's
+    first BATCH_FRAMES frames (FVD takes 9 or more) and its first SEQ_FRAMES
+    (phases 12 and 13), under ``tmp``."""
     from tvc_torch.core.config import CodecConfig
     from tvc_torch.models.codec.elic import make_elic
 
@@ -844,7 +861,9 @@ def write_sweep_inputs(torch, tmp, video):
     data = os.path.join(tmp, "data.npy")
     frames = np.round(video[0, :BATCH_FRAMES] * 255).astype(np.uint8)
     np.save(data, frames.transpose(0, 3, 1, 2)[None])
-    return ckpts, data
+    short = os.path.join(tmp, "data_short.npy")
+    np.save(short, np.load(data)[:, :SEQ_FRAMES])
+    return ckpts, data, short
 
 
 def sweep_process(args, tag):
@@ -925,7 +944,7 @@ def phase_cli_sweep(tmp, ckpts, data, config_mods):
     return row
 
 
-SEQ_FRAMES = 7  # depth of phase 13: the keyframe pair and one update of 5
+SEQ_FRAMES = 7  # depth of phases 12 and 13: the keyframe pair and one update of 5
 
 
 def updates_printed(stdout):
@@ -943,7 +962,6 @@ def phase_seq_sweep(torch, attn, tmp, ckpts, data, config_mods, cfg, predictor, 
     from tvc_torch.pipeline.driver import load_dataset, run_sweep
 
     short = os.path.join(tmp, "data_short.npy")
-    np.save(short, np.load(data)[:, :SEQ_FRAMES])
     per_update = predictor.n_steps * sum(n for *_, n in LEVELS)
     stdout, wall, launches = sweep_process(
         ["--no-fvd", "--data-npy", short, "--output-path", os.path.join(tmp, "fused"),
@@ -1221,10 +1239,11 @@ def eager_generate(predictor, cond_frames, x_init, noise):
 
     cfg = predictor.cfg
     b, size, c = cond_frames.shape[0], cfg.data.image_size, cfg.data.channels
-    cond = data_transform(cfg, to_tensor(cond_frames, predictor.device))
+    cond = data_transform(cfg, to_tensor(cond_frames, predictor.device, predictor.carry_dtype))
     step, warm = predictor._split(noise)
     with torch.no_grad(), batched_conv_algorithms(b, predictor.device):
-        out = predictor._sample(x_init, cond, step, warm, eps_fn=predictor.model)
+        out = predictor._sample(x_init, cond, step, warm, eps_fn=predictor.model,
+                                eps_fn_hi=predictor.model_hi)
         out = inverse_data_transform(cfg, out[-1].float())
     return out.reshape(b, size, size, cfg.data.num_frames, c).permute(0, 3, 1, 2, 4)
 
@@ -1504,6 +1523,9 @@ def phase_train_attention(torch, attn):
                                                                                dout), 20)
             row["plain_fwd_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
                 attn.attention_plain(q, k, v), bases, dout), 20)
+            # the library's yardstick; the port never calls it
+            row["sdpa_fwd_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+                torch.nn.functional.scaled_dot_product_attention(q, k, v), bases, dout), 20)
             row["per_unet_call"] = per_call
             rows.append(row)
             log("train_attention " + json.dumps(row))
@@ -1874,10 +1896,13 @@ def phase_train(torch, attn, layers, tmp, video, card, predictor, b1_update):
     b8 = [r for r in rows["attention"] if r["B"] == TRAIN_BATCH]
     fwd = sum(r["fwd_ms"] * r["per_unet_call"] for r in b8)
     bwd = sum(r["bwd_ms"] * r["per_unet_call"] for r in b8)
+    sdpa = sum(r["sdpa_fwd_bwd_ms"] * r["per_unet_call"] for r in b8)
+    plain = sum(r["plain_fwd_bwd_ms"] * r["per_unet_call"] for r in b8)
     step_s = min(rows["step"]["step_s"])
     rows["summary"] = {
         "card": card, "batch": TRAIN_BATCH, "step_s": step_s,
         "attention_fwd_ms_per_step": fwd, "attention_bwd_ms_per_step": bwd,
+        "plain_fwd_bwd_ms_per_step": plain, "sdpa_fwd_bwd_ms_per_step": sdpa,
         "attention_share_of_step": (fwd + bwd) / 1e3 / step_s,
         "attention_bwd_share_of_step": bwd / 1e3 / step_s,
         "peak_mem_gb_in_process": rows["step"]["peak_mem_gb"],
@@ -1887,6 +1912,259 @@ def phase_train(torch, attn, layers, tmp, video, card, predictor, b1_update):
         "loop_overlapped_step_s": rows["loop"]["overlapped_step_s"]}
     log("train_summary " + json.dumps(rows["summary"]))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the bf16 throughput path
+# ---------------------------------------------------------------------------
+
+# the kernel against the plain attention inside the full-width bf16 UNet: the
+# kernel keeps the softmax weights in float32, the plain version rounds them to
+# bf16 before p.v (as the JAX package's einsum path does); the rest of the net
+# rounds in bf16 after either, so the two differ by bf16 rounding carried
+# through the depth: max |diff| <= 5e-2 x max |plain|. On the mean, the bf16
+# UNet through the kernel stays as close to the float32 UNet as through the
+# plain attention, within half again (a mean bound of 1e-2 against plain was
+# missed at 1.25e-2 on the first H100 run: the plain path's own distance to
+# float32 is of that size)
+BF16_KERNEL_MAX_REL = 5e-2
+BF16_KERNEL_MEAN_VS_PLAIN = 1.5
+BF16_GOP_FRAMES = 12   # phase 17b's GOP: the keyframe pair and two or more updates
+BF16_K = 10            # phase 17c's f32:K whose wall is recorded
+
+
+def bf16_predictor(predictor, schedule="", stored=True):
+    """A predictor over ``predictor``'s full-width weights at bf16 compute:
+    with ``stored`` on a bf16 copy of them (the harness's mode), else over the
+    float32 masters with ``sampling.precision_schedule=schedule``."""
+    import copy
+
+    import torch
+
+    from tvc_torch.pipeline.predictor import FramePredictor
+
+    cfg = copy.deepcopy(predictor.cfg)
+    cfg.sampling.precision_schedule = schedule
+    return FramePredictor(cfg, predictor.model, dtype=torch.bfloat16,
+                          params_dtype=torch.bfloat16 if stored else None)
+
+
+def conv_share(torch, fn):
+    """(device ms of one call, share of it under aten::convolution, lines) from
+    torch.profiler: a convolution's layout conversions and bias count as its own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in kernels)
+    conv = sum(e.device_time_total for e in events if e.key == "aten::convolution")
+    gn = sum(e.device_time_total for e in events if e.key == "aten::group_norm")
+    attn_us = sum(e.self_device_time_total for e in kernels if "attention_fwd" in e.key)
+    lines = [f"{e.self_device_time_total / 1e3:9.3f} ms {e.self_device_time_total / total:6.1%} "
+             f"x{e.count:<5d} {e.key[:90]}"
+             for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]]
+    return {"device_ms": total / 1e3, "conv_share": conv / total, "groupnorm_share": gn / total,
+            "attention_ms": attn_us / 1e3, "attention_share": attn_us / total,
+            "kernel_launches": sum(e.count for e in kernels)}, lines
+
+
+def phase_bf16_unet(torch, attn, layers, predictor, pred16):
+    """Phase 17a: the full-width bf16 UNet (bf16-stored weights) at B = 1 and
+    8: the kernel against the plain attention inside it, its 10 launches a
+    call, the eps error against float32 on the same weights and inputs
+    (docs/BF16.md's quantities), ms per call as a replayed graph against
+    float32 in this process, and where the device time goes."""
+    from unittest import mock
+
+    from tvc_torch.core.runtime import batched_conv_algorithms
+
+    cfg = predictor.cfg
+    size, c = cfg.data.image_size, cfg.data.channels
+    rows = {}
+    for b in (1, 8):
+        g = torch.Generator(device="cuda").manual_seed(17 + b)
+        x = torch.randn((b, size, size, c * cfg.data.num_frames), generator=g, device="cuda")
+        cond = torch.rand((b, size, size, c * cfg.data.num_frames_cond), generator=g,
+                          device="cuda") * 2 - 1
+        t = torch.full((b,), 500, device="cuda")
+        x16, cond16 = x.to(torch.bfloat16), cond.to(torch.bfloat16)
+        with torch.no_grad(), batched_conv_algorithms(b, "cuda"):
+            before = attn.launches
+            out = pred16.model(x16, t, cond16)
+            torch.cuda.synchronize()
+            n = attn.launches - before
+            with mock.patch.object(layers, "attention", attn.attention_plain):
+                ref = pred16.model(x16, t, cond16)
+            f32 = predictor.model(x, t, cond)
+            torch.cuda.synchronize()
+            o, r, f = out.double(), ref.double(), f32.double()
+            row = {"B": b, "dtype": str(out.dtype), "attention_launches": n,
+                   "kernel_vs_plain_max_rel": ((o - r).abs().max() / r.abs().max()).item(),
+                   "kernel_vs_plain_mean_rel": ((o - r).abs().mean() / r.abs().mean()).item(),
+                   "eps_vs_f32_max_rel": ((o - f).abs().max() / f.abs().max()).item(),
+                   "eps_vs_f32_mean_rel": ((o - f).abs().mean() / f.abs().mean()).item(),
+                   "plain_vs_f32_max_rel": ((r - f).abs().max() / f.abs().max()).item(),
+                   "plain_vs_f32_mean_rel": ((r - f).abs().mean() / f.abs().mean()).item(),
+                   "finite": bool(torch.isfinite(out).all())}
+            row["bf16_ms"] = graph_ms(torch, lambda: pred16.model(x16, t, cond16), 5)
+            row["f32_ms"] = graph_ms(torch, lambda: predictor.model(x, t, cond), 5)
+            row["bf16_speedup"] = row["f32_ms"] / row["bf16_ms"]
+            if b == 1:
+                prof16, lines16 = conv_share(torch, lambda: pred16.model(x16, t, cond16))
+                prof32, _ = conv_share(torch, lambda: predictor.model(x, t, cond))
+                row["profile_bf16"], row["profile_f32"] = prof16, prof32
+        log("bf16_unet " + json.dumps(row))
+        if b == 1:
+            for line in lines16:
+                log("bf16_profile: " + line)
+        if out.dtype != torch.bfloat16 or not row["finite"]:
+            fail(f"the bf16 UNet at B = {b} returned {out.dtype}, finite {row['finite']}")
+        if n != sum(k for *_, k in LEVELS):
+            fail(f"the bf16 UNet at B = {b} launched {n} attention kernels, not 10")
+        if not (row["kernel_vs_plain_max_rel"] <= BF16_KERNEL_MAX_REL and row[
+                "eps_vs_f32_mean_rel"] <= BF16_KERNEL_MEAN_VS_PLAIN * row["plain_vs_f32_mean_rel"]):
+            fail(f"the bf16 UNet at B = {b} through the kernel disagrees with the plain "
+                 f"attention: {row}")
+        rows[b] = row
+    return rows
+
+
+def phase_bf16_bytes(torch, attn, pred16, coder, lpips, video):
+    """Phase 17b: in bf16 at B = 1, one update through the graph against the
+    eager loop, and a BF16_GOP_FRAMES-frame GOP through ``DeviceGOPRunner``
+    against ``run_gop``, byte for byte."""
+    from tvc_torch.pipeline.sender import DeviceGOPRunner, Sender, run_gop
+
+    cfg = pred16.cfg
+    cond = video[0, :2].transpose(1, 2, 0, 3).reshape(1, 128, 128, 6)
+    x_init, noise = pred16.draws(torch.Generator(device="cuda").manual_seed(71), 1)
+    pred16.generate(cond, x_init=x_init, noise=noise)  # warm-up call and capture
+    attn.reset_launches()
+    graphed, g_wall, g_dev = update_times(
+        torch, lambda: pred16.generate(cond, x_init=x_init, noise=noise))
+    launches = {"bf16_update_graphed": attn.launches}
+    eager, e_wall, e_dev = update_times(
+        torch, lambda: eager_generate(pred16, cond, x_init, noise))
+    row = {"graph_wall_s": g_wall, "graph_event_s": g_dev, "eager_wall_s": e_wall,
+           "eager_event_s": e_dev, "x_init_dtype": str(x_init.dtype),
+           "graph_equals_eager": graphed.cpu().numpy().tobytes() == eager.cpu().numpy().tobytes()}
+    if not row["graph_equals_eager"]:
+        fail("bf16: the graphed update differs from the eager loop")
+
+    sender = Sender(GOP_THRESHOLD, cfg, pred16, lpips)
+    attn.reset_launches()
+    ref, wall = timed(torch, lambda: run_gop(sender, coder, video[0], cfg.seed, BF16_GOP_FRAMES,
+                                              cfg.codec.patch, keep_streams=True))
+    launches["bf16_run_gop"] = attn.launches
+    runner = DeviceGOPRunner(cfg, pred16, lpips=lpips, num_frames_total=BF16_GOP_FRAMES)
+    attn.reset_launches()
+    gop, dwall = timed(torch, lambda: runner.run(coder, video[0], cfg.seed, GOP_THRESHOLD,
+                                                 cfg.codec.patch, keep_streams=True))
+    launches["bf16_device_gop"] = attn.launches
+    same = {"d": gop.d.tolist() == ref.d.tolist(), "accepts": gop.accepts == ref.accepts,
+            "bits": gop.bits == ref.bits, "containers": gop.containers == ref.containers,
+            "frames": gop.x_ge.tobytes() == ref.x_ge.tobytes()}
+    row.update({"run_gop_wall_s": wall, "device_gop_wall_s": dwall, "n_updates": ref.n_updates,
+                "accepts": ref.accepts, "device_gop_equals_run_gop": same,
+                "frames_finite": bool(np.isfinite(ref.x_ge).all()), "launches": launches})
+    log("bf16_bytes " + json.dumps(row))
+    if not all(same.values()):
+        fail(f"bf16: DeviceGOPRunner differs from run_gop: {same}")
+    per_update = 101 * sum(n for *_, n in LEVELS)
+    if launches["bf16_run_gop"] != per_update * ref.n_updates or \
+            launches["bf16_device_gop"] != per_update * gop.n_updates:
+        fail(f"bf16 GOPs launched {launches}, not {per_update} an update")
+    return row, launches
+
+
+def phase_bf16_schedule(torch, attn, predictor, pred16, video):
+    """Phase 17c: f32:101 (every step through the float32 twin) equal to the
+    float32 update bit for bit, f32:0 equal to uniform bf16 (whose weights are
+    stored in bf16: the bf16-stored and float32-master predictors give the
+    same bytes), and the walls of f32:BF16_K, bf16 and float32 updates."""
+    cond = video[0, :2].transpose(1, 2, 0, 3).reshape(1, 128, 128, 6)
+    gen = torch.Generator(device="cuda")
+    x32, noise = predictor.draws(gen.manual_seed(72), 1)
+    x16, _ = pred16.draws(gen.manual_seed(72), 1)
+    rows, launches = {}, {}
+    outs = {}
+    # the float32 and bf16 predictors hold their B = 1 graphs from phases 5-15
+    # and 17b; f32:101 and f32:0 need no wall (their first call runs eagerly,
+    # which gives the graph's bytes); f32:K's wall is timed after a warm-up
+    for name, pred, x_init in (("f32", predictor, x32), ("f32:101", bf16_predictor(
+            predictor, "f32:101", stored=False), x32), ("bf16", pred16, x16),
+            ("f32:0", bf16_predictor(predictor, "f32:0", stored=False), x16),
+            (f"f32:{BF16_K}", bf16_predictor(predictor, f"f32:{BF16_K}", stored=False), x32)):
+        if name == f"f32:{BF16_K}":
+            pred.generate(cond, x_init=x_init, noise=noise)  # the warm-up call and capture
+        attn.reset_launches()
+        outs[name], wall, dev = update_times(
+            torch, lambda: pred.generate(cond, x_init=x_init, noise=noise))
+        launches[f"update_{name}"] = attn.launches
+        rows[name] = {"wall_s": wall, "event_s": dev, "carry": str(pred.carry_dtype),
+                      "hi_steps": pred.hi_steps}
+    eq = {"f32:101 == f32": outs["f32:101"].cpu().numpy().tobytes()
+          == outs["f32"].cpu().numpy().tobytes(),
+          "f32:0 == bf16": outs["f32:0"].cpu().numpy().tobytes()
+          == outs["bf16"].cpu().numpy().tobytes()}
+    rows["equal"] = eq
+    k_out = outs[f"f32:{BF16_K}"]
+    rows[f"f32:{BF16_K}_distance_to_f32"] = (k_out - outs["f32"]).abs().mean().item()
+    rows["bf16_distance_to_f32"] = (outs["bf16"] - outs["f32"]).abs().mean().item()
+    log("bf16_schedule " + json.dumps(rows))
+    if not all(eq.values()):
+        fail(f"the f32:K schedule broke an exact equality: {eq}")
+    if any(n != 101 * sum(k for *_, k in LEVELS) for n in launches.values()):
+        fail(f"an f32:K update launched {launches}, not 1010 each")
+    return rows, launches
+
+
+def harness_process(args, tag):
+    """``python -m tvc_torch.bench.throughput *args`` in a fresh process."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tvc_torch.bench.throughput", *args],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.strip().splitlines():
+        if not line.startswith("[bench] result"):
+            log(f"  {tag}| " + line)
+    if proc.returncode != 0:
+        fail(f"the {tag} harness exited {proc.returncode}")
+    last = json.loads(proc.stdout.strip().splitlines()[-1])
+    if set(last) != {"metric", "value", "unit", "vs_baseline"} or not last["value"] > 0:
+        fail(f"the {tag} harness's last line is not bench.py's: {last}")
+    info = json.loads([ln for ln in proc.stderr.splitlines() if ln.startswith("{")][-1])
+    result = json.loads(re.search(r"\[bench\] result (\{.*\})", proc.stderr).group(1))
+    launches = int(re.search(r"attention kernel launches: (\d+)", proc.stderr).group(1))
+    row = {"process_wall_s": wall, "last_line": last, "info": info, "result": result,
+           "launches": launches}
+    log(f"harness_{tag} " + json.dumps(row))
+    if info["platform"] != "gpu" or launches <= 0:
+        fail(f"the {tag} harness did not run through the kernel on the card: {info}")
+    return row
+
+
+def phase_bf16(torch, attn, layers, predictor, coder, lpips, video):
+    """Phase 17: the bf16 throughput path (a)-(d)."""
+    pred16 = bf16_predictor(predictor)
+    rows = {"unet": phase_bf16_unet(torch, attn, layers, predictor, pred16)}
+    rows["bytes"], launches = phase_bf16_bytes(torch, attn, pred16, coder, lpips, video)
+    rows["schedule"], more = phase_bf16_schedule(torch, attn, predictor, pred16, video)
+    launches.update(more)
+    del pred16
+    torch.cuda.empty_cache()
+    rows["harness_bf16"] = harness_process([], "bf16")
+    rows["harness_f32_quick"] = harness_process(["--dtype", "f32", "--quick"], "f32_quick")
+    launches["harness_bf16"] = rows["harness_bf16"]["launches"]
+    launches["harness_f32_quick"] = rows["harness_f32_quick"]["launches"]
+    return rows, launches
 
 
 def main() -> None:
@@ -1958,8 +2236,8 @@ def main() -> None:
     fused = phase_fused(torch, attn, predictor, coder, lpips, video)
     batched = phase_batched(torch, attn, predictor, coder, lpips)
     with tempfile.TemporaryDirectory() as tmp:
-        ckpts, data = write_sweep_inputs(torch, tmp, video)
-        sweep = phase_cli_sweep(tmp, ckpts, data, ["codec.entropy_backend=device"])
+        ckpts, data, short = write_sweep_inputs(torch, tmp, video)
+        sweep = phase_cli_sweep(tmp, ckpts, short, ["codec.entropy_backend=device"])
         seq = phase_seq_sweep(torch, attn, tmp, ckpts, data, ["codec.entropy_backend=device"],
                               cfg, predictor, lpips)
         t14 = time.perf_counter()
@@ -1975,6 +2253,9 @@ def main() -> None:
         training = phase_train(torch, attn, layers, tmp, video, card, predictor,
                                samplers["b1_update"])
     training_s = time.perf_counter() - t16
+    t17 = time.perf_counter()
+    bf16, bf16_launches = phase_bf16(torch, attn, layers, predictor, coder, lpips, video)
+    bf16_s = time.perf_counter() - t17
     path_launches = {"run_gop": gop["attention_launches"],
                      "device_gop": device_gop["attention_launches"],
                      "fused_run": fused["attention_launches"],
@@ -1992,7 +2273,8 @@ def main() -> None:
                      "cli_train": training["cli"]["first"]["launches"],
                      "cli_train_resumed": training["cli"]["resumed"]["launches"],
                      "train_loop": training["loop"]["launches"],
-                     "b1_update_after_training": training["b1"]["launches"]}
+                     "b1_update_after_training": training["b1"]["launches"],
+                     **bf16_launches}
     log("launches " + json.dumps(path_launches))
     main_launches = sum(path_launches.values())
     if min(path_launches.values()) <= 0:
@@ -2016,6 +2298,15 @@ def main() -> None:
     log(f"attention per UNet call: kernel {per_unet_call('ms'):.4f} ms, SDPA "
         f"{per_unet_call('library_ms'):.4f} ms, bound {ops_ms + byte_ms:.5f} ms "
         f"({(ops_ms + byte_ms) / per_unet_call('ms'):.1%} of bound)")
+    # the kernel in bf16 at the bf16 UNet's shapes (phase 3), per UNet call
+    bf16_per_call = {}
+    for b in (1, 8):
+        rs = [r for r in rows if r["B"] == b and r["dtype"] == "bfloat16"]
+        bf16_per_call[b] = {k: sum(r[k] * r["per_unet_call"] for r in rs)
+                            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        bf16_per_call[b]["max_abs_err"] = max(r["max_abs_err"] for r in rs)
+        bf16_per_call[b]["launches_per_unet_call"] = sum(r["per_unet_call"] for r in rs)
+    log("attention_bf16_per_unet_call " + json.dumps(bf16_per_call))
     log("summary " + json.dumps({
         "unet_ms": unet["unet_ms"], "cycle_wall_s": cycle["wall_s"],
         "codec_encode_s": {b: codec[b]["encode_s"] for b in ("device", "cpu")},
@@ -2044,6 +2335,17 @@ def main() -> None:
                                 for v in ("ddim", "fpndm")},
         "graphs": predictor.graphs.stats(),
         "train_phase_s": training_s, "train": training["summary"],
+        "bf16_phase_s": bf16_s,
+        "bf16_unet": {b: {k: r[k] for k in ("bf16_ms", "f32_ms", "bf16_speedup",
+                                            "eps_vs_f32_max_rel", "eps_vs_f32_mean_rel",
+                                            "kernel_vs_plain_max_rel")}
+                      for b, r in bf16["unet"].items()},
+        "bf16_conv_share": bf16["unet"][1]["profile_bf16"]["conv_share"],
+        "f32_conv_share": bf16["unet"][1]["profile_f32"]["conv_share"],
+        "bf16_update_s": {k: v["wall_s"] for k, v in bf16["schedule"].items()
+                          if isinstance(v, dict) and "wall_s" in v},
+        "harness_bf16": bf16["harness_bf16"]["last_line"],
+        "harness_f32_quick": bf16["harness_f32_quick"]["last_line"],
         "numerics": numerics(),
         "total_s": time.perf_counter() - t_start}))
     kernels = [{

@@ -159,6 +159,24 @@ def test_gaussian_coder_roundtrip_is_quantize_dequantize():
     assert dec.tobytes() == want.tobytes()
 
 
+@pytest.mark.parametrize("bad", [np.nan, np.inf, 3e9])
+def test_non_finite_latents_are_refused(bad):
+    """A latent that does not cast to an int32 symbol becomes INT_MIN, whose
+    escape coding never ends in the rANS coder (seen with the huge means of
+    a codec on random weights): both coders refuse it with a ValueError."""
+    gc = GaussianCoder()
+    y = np.zeros((1, 2, 3, 3), np.float32)
+    y[0, 1, 2, 0] = bad
+    idx = gc.build_indexes(np.ones_like(y))
+    with pytest.raises(ValueError, match="non-finite latents"):
+        gc.compress(y, idx, np.zeros_like(y))
+    fc = FactorizedCoder.from_module(_random_bottleneck(4))
+    z = np.zeros((1, 16, 3, 4), np.float32)
+    z[0, 3, 1, 2] = bad
+    with pytest.raises(ValueError, match="non-finite latents"):
+        fc.quantize(z)
+
+
 def test_rans_rejects_bad_input():
     gc = GaussianCoder()
     with pytest.raises(ValueError):

@@ -392,6 +392,99 @@ def test_graph_equals_eager_bit_for_bit(cuda, version, gamma, t_min):
     assert [s["replays"] for s in pred.graphs.stats().values()] == [n, n]
 
 
+
+def _bf16_unet():
+    """A narrow NCSN++ (every weight N(0, 0.08)) on the card, and its bf16 twin."""
+    cfg = Config()
+    cfg.data.image_size = 32
+    cfg.model.ngf = 16
+    cfg.model.n_head_channels = 8
+    cfg.model.attn_resolutions = (4, 8, 16)
+    model = UNetMoreDDPM(cfg, device="cpu").eval()
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.08)
+    model = model.to("cuda")
+    return cfg, model, model.with_dtype(torch.bfloat16)
+
+
+def test_bf16_unet_kernel_matches_plain(cuda):
+    """The kernel in bf16 inside the bf16 UNet against the plain attention
+    (which rounds P to bf16 before p.v; the kernel keeps it in float32): bf16
+    rounding carried through the net, max |diff| <= 5e-2 x max |plain|, and
+    every call's 10 launches in bf16."""
+    from unittest import mock
+
+    from tvc_torch.models.diffusion import layers
+
+    cfg, _, model16 = _bf16_unet()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((1, 32, 32, 15), generator=g, device="cuda").to(torch.bfloat16)
+    cond = torch.randn((1, 32, 32, 6), generator=g, device="cuda").to(torch.bfloat16)
+    t = torch.tensor([10], device="cuda")
+    with torch.no_grad():
+        attn.reset_launches()
+        out = model16(x, t, cond)
+        assert attn.launches == 10
+        with mock.patch.object(layers, "attention", attn.attention_plain):
+            ref = model16(x, t, cond)
+    assert out.dtype == ref.dtype == torch.bfloat16
+    scale = ref.float().abs().max().item()
+    assert scale > 1e-3
+    assert (out.float() - ref.float()).abs().max().item() <= 5e-2 * scale
+
+
+def test_bf16_graph_equals_eager_bit_for_bit(cuda):
+    """A bf16 predictor (bf16-stored weights) through its graphed UNet gives
+    the eager sampler's frames bit for bit at B = 1 and 2, and the float32
+    masters at bf16 compute give the same frames."""
+    from tvc_torch.pipeline.predictor import FramePredictor
+    from tvc_torch.core.runtime import batched_conv_algorithms
+    from tvc_torch.pipeline.transforms import data_transform, inverse_data_transform
+
+    cfg, model, _ = _bf16_unet()
+    cfg.model.num_classes = 20
+    cfg.sampling.subsample = 4
+    pred = FramePredictor(cfg, model, dtype=torch.bfloat16, params_dtype=torch.bfloat16)
+    masters = FramePredictor(cfg, model, dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for b in (1, 2):
+        cond = torch.rand((b, 32, 32, 6), generator=g, device="cuda")
+        x_init, noise = pred.draws(torch.Generator(device="cuda").manual_seed(b), b)
+        assert x_init.dtype == torch.bfloat16
+        outs = [pred.generate(cond, x_init=x_init, noise=noise) for _ in range(3)]
+        step, warm = pred._split(noise)
+        with torch.no_grad(), batched_conv_algorithms(b, "cuda"):
+            eager = pred._sample(x_init, data_transform(cfg, cond.to(torch.bfloat16)), step, warm,
+                                 eps_fn=pred.model)[-1]
+        eager = inverse_data_transform(cfg, eager.float()).reshape(b, 32, 32, 5, 3)
+        eager = eager.permute(0, 3, 1, 2, 4)
+        for out in outs:
+            assert out.dtype == torch.float32 and torch.equal(out, eager)
+        assert torch.equal(masters.generate(cond, x_init=x_init, noise=noise), outs[0])
+
+
+def test_precision_schedule_covering_every_step_is_f32_on_card(cuda):
+    """f32:K with K >= L + 1 is the float32 predictor's run bit for bit."""
+    import copy
+
+    from tvc_torch.pipeline.predictor import FramePredictor
+
+    cfg, model, _ = _bf16_unet()
+    cfg.model.num_classes = 20
+    cfg.sampling.subsample = 4
+    f32 = FramePredictor(cfg, model)
+    mixed_cfg = copy.deepcopy(cfg)
+    mixed_cfg.sampling.precision_schedule = f"f32:{f32.n_steps}"
+    mixed = FramePredictor(mixed_cfg, model, dtype=torch.bfloat16)
+    cond = torch.rand((1, 32, 32, 6), generator=torch.Generator(device="cuda").manual_seed(3),
+                      device="cuda")
+    x_init, noise = f32.draws(torch.Generator(device="cuda").manual_seed(4), 1)
+    want = f32.generate(cond, x_init=x_init, noise=noise)
+    for _ in range(2):  # the eager call, then the graph
+        assert torch.equal(mixed.generate(cond, x_init=x_init, noise=noise), want)
+
 def test_default_width_tvc_container_decodes_on_card(cuda):
     """The default-width container ``tvc/`` wrote (tests/test_torch_cross_decode.py)
     decodes in the port with its g_s on the card; the count of streams that

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from tvc_torch import cli
+from tvc_torch.bench import throughput
 from tvc_torch.core.config import CodecConfig, Config
 from tvc_torch.metrics.fvd import FVDMetric
 from tvc_torch.metrics.lpips import LPIPSMetric
@@ -42,6 +43,19 @@ def test_importing_every_module_pulls_in_no_jax():
     assert len(out) == 1, f"tvc_torch imported {out[1]}"
 
 
+@pytest.mark.parametrize("module", ["tvc_torch.bench.throughput", "tvc_torch.utils.fastinit",
+                                    "tvc_torch.utils.profiler"])
+def test_throughput_modules_import_alone_without_jax(module):
+    """The throughput harness and its helpers, each imported in a fresh process."""
+    probe = (f"import importlib, sys; importlib.import_module({module!r}); "
+             "print(sorted(m for m in sys.modules "
+             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tvc')))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env, check=True,
+                         capture_output=True, text=True, timeout=120).stdout.strip()
+    assert out == "[]", out
+
+
 @pytest.mark.parametrize("path", ["chip_smoke.py", "tvc_torch"])
 def test_sources_name_no_jax(path):
     """No import statement of the port or its chip script names jax, flax or tvc."""
@@ -68,7 +82,8 @@ def test_sources_name_no_jax(path):
 
 @pytest.mark.parametrize("entry", ["unet", "predictor", "lpips", "coder", "fvd", "fid_inception",
                                    "cli_codec", "cli_gop_send", "cli_gop_receive", "cli_sweep",
-                                   "train_step", "train_loop", "cli_train"])
+                                   "train_step", "train_loop", "cli_train", "fast_predictor",
+                                   "bench_pipeline", "bench_main"])
 def test_default_device_raises_without_a_card(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a card; the default device is valid here")
@@ -89,6 +104,13 @@ def test_default_device_raises_without_a_card(entry, tmp_path):
             make_train_step(Config())
         elif entry == "train_loop":
             train(Config(), np.zeros((1, 8, 64, 64, 3), np.float32), num_steps=1)
+        elif entry == "fast_predictor":
+            FramePredictor.create(Config(), dtype=torch.bfloat16, params_dtype=torch.bfloat16,
+                                  fast_init=True)
+        elif entry == "bench_pipeline":
+            throughput.bench_pipeline(subsample=2)
+        elif entry == "bench_main":
+            throughput.main(["--quick", "--no-codec"])
         else:
             frames = tmp_path / "frames.npy"
             np.save(frames, np.zeros((2, 64, 64, 3), np.float32))

@@ -7,7 +7,8 @@ On the card, the f32 path is full f32 and repeatable: TF32 is off for
 convolutions and matrix products, and cuDNN picks its algorithms
 deterministically, without benchmarking. The receiver regenerates frames by
 rerunning the sender's prediction, so the same prediction twice must be
-bit-identical.
+bit-identical. A bfloat16 matrix product accumulates in float32, as XLA
+accumulates the JAX package's bf16 einsums: cuBLAS may not reduce in bf16.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ def set_numerics() -> Dict[str, bool]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return numerics()
 
 
@@ -35,6 +37,8 @@ def numerics() -> Dict[str, bool]:
         "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "cudnn.benchmark": torch.backends.cudnn.benchmark,
         "cudnn.deterministic": torch.backends.cudnn.deterministic,
+        "cuda.matmul.allow_bf16_reduced_precision_reduction":
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
     }
 
 
@@ -43,13 +47,16 @@ SAMPLER_FIELDS = ("model.version", "model.gamma", "sampling.init_prev_t", "sampl
                   "sampling.denoise", "sampling.clip_before")
 
 
-def numerics_stamp(device, cfg) -> Dict[str, str]:
+def numerics_stamp(device, cfg, compute_dtype=torch.float32) -> Dict[str, str]:
     """What decides a run's bits, as strings: the versions of torch, CUDA and
     cuDNN, the card, the backend flags, the codec's entropy backend, the
-    attention kernel's build key and the sampler's settings of ``cfg``;
+    attention kernel's build key, the sampler's settings of ``cfg``, the
+    predictor's ``compute_dtype``, its ``sampling.precision_schedule`` and
+    ``TVC_GN_BF16_IO`` (the JAX package stamps ``env_gn_bf16_io``);
     where the host computes something the receiver must repeat, its CPU's
     vector capability, and on a CPU device its thread count. A GOP payload
     carries it, and a receiver whose own stamp differs refuses the payload."""
+    from tvc_torch.models.diffusion.layers import gn_bf16_io
     from tvc_torch.ops import _build
 
     dev = resolve_device(device)
@@ -64,6 +71,9 @@ def numerics_stamp(device, cfg) -> Dict[str, str]:
         "attention_build": _build.build_key("attention"),
     }
     stamp.update({k: str(v) for k, v in numerics().items()})
+    stamp["compute_dtype"] = str(compute_dtype).replace("torch.", "")
+    stamp["sampling.precision_schedule"] = cfg.sampling.precision_schedule
+    stamp["env_gn_bf16_io"] = str(int(gn_bf16_io()))
     for field in SAMPLER_FIELDS:
         section, key = field.split(".")
         value = getattr(getattr(cfg, section), key)

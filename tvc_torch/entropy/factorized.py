@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tvc_torch.entropy.cdf import build_cdf_table
-from tvc_torch.entropy.rans import RansDecoder, RansEncoder
+from tvc_torch.entropy.rans import RansDecoder, RansEncoder, finite_latents
 from tvc_torch.ops.quantize import quantize
 
 LIKELIHOOD_BOUND = 1e-9
@@ -190,7 +190,7 @@ class FactorizedCoder:
         symbols = round(z - median) with the float64 median, z_hat = symbols +
         median in float32, which is what ``decompress`` returns."""
         med = self.medians[None, :, None, None]
-        sym = np.round(np.asarray(z) - med).astype(np.int32)
+        sym = np.round(finite_latents(np.asarray(z) - med)).astype(np.int32)
         return sym.astype(np.float32) + med.astype(np.float32), sym
 
     def compress_symbols(self, sym: np.ndarray) -> List[bytes]:

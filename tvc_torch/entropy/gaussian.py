@@ -18,7 +18,7 @@ import torch
 from scipy.stats import norm as _norm
 
 from tvc_torch.entropy.cdf import build_cdf_table
-from tvc_torch.entropy.rans import RansDecoder, RansEncoder
+from tvc_torch.entropy.rans import RansDecoder, RansEncoder, finite_latents
 
 SCALES_MIN = 0.11
 SCALES_MAX = 256.0
@@ -93,7 +93,7 @@ class GaussianCoder:
     def compress(self, y: np.ndarray, indexes: np.ndarray, means: np.ndarray) -> List[bytes]:
         """y/means/indexes: (B, ...), flattened in C order. One string per batch element."""
         b = y.shape[0]
-        sym = np.round(y - means).astype(np.int32).reshape(b, -1)
+        sym = np.round(finite_latents(y - means)).astype(np.int32).reshape(b, -1)
         idx = indexes.reshape(b, -1)
         return self._enc.encode_batch(sym, idx, [sym.shape[1]] * b, self.cdf, self.cdf_length,
                                       self.offset)

@@ -125,6 +125,16 @@ def _check_indexes(ind: np.ndarray, n_cdfs: int) -> None:
         raise ValueError(f"CDF index out of range [0, {n_cdfs})")
 
 
+def finite_latents(x: np.ndarray) -> np.ndarray:
+    """``x``, latents less their means or medians, where every value casts to
+    an int32 symbol. NaN, inf and |x| >= 2^31 cast to INT_MIN, whose escape
+    coding in the rANS coder never ends: such latents are refused instead."""
+    if not (np.abs(x) < 2.0 ** 31 - 1).all():
+        raise ValueError("non-finite latents: the entropy model gave NaN, inf or a value "
+                         "outside the int32 symbols, which the rANS coder cannot code")
+    return x
+
+
 class RansEncoder:
     """Encodes symbols against indexed quantized CDFs (API of compressai's
     ``BufferedRansEncoder``)."""

@@ -7,6 +7,16 @@ state dict (``Conv_0.weight``, ``GroupNorm_0.weight``, ``NIN_0.W``,
 Numerics follow the JAX package: GroupNorm eps 1e-6 in the attention block
 and 1e-5 in ``GetActNorm``, statistics in f32, skip sums scaled by 1/sqrt(2).
 
+Every module takes a compute ``dtype`` (float32 by default), as the Flax
+modules do: a layer casts its input, weight and bias to it (Flax's
+``promote_dtype``), so the stored weights may stay float32 masters or be
+stored in the compute dtype, with the same bytes either way. GroupNorm takes
+its statistics in float32 and returns the compute dtype; its scale and shift
+are rounded to the compute dtype first (Flax keeps float32 masters there at
+float32), which is what makes bf16-stored weights and float32 masters give the
+same bytes. ``TVC_GN_BF16_IO=1`` keeps GroupNorm's input and output in a
+non-float32 compute dtype (``gn_bf16_io``).
+
 Construction leaves PyTorch's default initialisation (``NIN``, which has
 none, draws the DDPM init from the global generator); ``init_params``
 re-initialises every module with the DDPM ``default_init`` from an explicit
@@ -16,6 +26,7 @@ re-initialises every module with the DDPM ``default_init`` from an explicit
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -74,9 +85,17 @@ def num_groups_for(ch: int) -> int:
     return ng
 
 
+def gn_bf16_io() -> bool:
+    """``TVC_GN_BF16_IO=1``: GroupNorm of a non-float32 compute dtype reads and
+    writes that dtype and takes only its statistics in float32 (the JAX
+    package's ``_gn_bf16_io``); off by default. Read at each call, as the JAX
+    package reads it at each trace, and stamped into a GOP payload."""
+    return os.environ.get("TVC_GN_BF16_IO", "0") == "1"
+
+
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
                            max_positions: int = 10000) -> torch.Tensor:
-    """Sinusoidal embedding of (B,) step labels, f32."""
+    """Sinusoidal embedding of (B,) step labels, f32 (the caller casts it)."""
     if timesteps.dim() != 1:
         raise ValueError("timesteps must be 1-D")
     half_dim = embedding_dim // 2
@@ -90,22 +109,34 @@ def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
 
 
 class Dense(nn.Linear):
-    """Linear layer with the DDPM ``default_init`` and a zero bias."""
+    """Linear layer with the DDPM ``default_init`` and a zero bias, computing
+    in ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, dtype=torch.float32, device=None):
+        super().__init__(in_features, out_features, device=device)
+        self.dtype = dtype
 
     def init_weights(self, generator=None):
         default_init_(self.weight, 1.0, generator)
         with torch.no_grad():
             self.bias.zero_()
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
 
 class DDPMConv(nn.Conv2d):
-    """3x3 / 1x1 'same' conv with the DDPM ``default_init(init_scale)``."""
+    """3x3 / 1x1 'same' conv with the DDPM ``default_init(init_scale)``,
+    computing in ``dtype`` (cuDNN adds the bias in its float32 epilogue,
+    where Flax rounds the product to the compute dtype before the add)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
-                 init_scale: float = 1.0, bias: bool = True, device=None):
+                 init_scale: float = 1.0, bias: bool = True, dtype=torch.float32, device=None):
         super().__init__(in_ch, out_ch, kernel_size, stride=stride, padding=kernel_size // 2,
                          bias=bias, device=device)
         self.init_scale = init_scale
+        self.dtype = dtype
 
     def init_weights(self, generator=None):
         default_init_(self.weight, self.init_scale, generator)
@@ -113,15 +144,22 @@ class DDPMConv(nn.Conv2d):
             with torch.no_grad():
                 self.bias.zero_()
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
 
 class NIN(nn.Module):
     """Network-in-network: a dense map over the last (channel) axis."""
 
-    def __init__(self, in_dim: int, num_units: int, init_scale: float = 0.1, device=None):
+    def __init__(self, in_dim: int, num_units: int, init_scale: float = 0.1,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.W = nn.Parameter(torch.empty(in_dim, num_units, device=device))
         self.b = nn.Parameter(torch.zeros(num_units, device=device))
         self.init_scale = init_scale
+        self.dtype = dtype
         self.init_weights()
 
     def init_weights(self, generator=None):
@@ -130,14 +168,18 @@ class NIN(nn.Module):
             self.b.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.W) + self.b
+        dt = self.dtype
+        return torch.matmul(x.to(dt), self.W.to(dt)) + self.b.to(dt)
 
 
 class GroupNormRef(nn.GroupNorm):
-    """GroupNorm with the reference's group-count rule; f32 statistics."""
+    """GroupNorm with the reference's group-count rule; f32 statistics, the
+    result in the compute ``dtype``."""
 
-    def __init__(self, ch: int, eps: float = 1e-6, affine: bool = True, device=None):
+    def __init__(self, ch: int, eps: float = 1e-6, affine: bool = True, dtype=torch.float32,
+                 device=None):
         super().__init__(num_groups_for(ch), ch, eps=eps, affine=affine, device=device)
+        self.dtype = dtype
 
     def init_weights(self, generator=None):
         if self.affine:
@@ -146,16 +188,22 @@ class GroupNormRef(nn.GroupNorm):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.float() if self.affine else None
-        b = self.bias.float() if self.affine else None
-        return F.group_norm(x.float(), self.num_groups, w, b, self.eps).to(x.dtype)
+        dt = self.dtype
+        w = self.weight.to(dt) if self.affine else None
+        b = self.bias.to(dt) if self.affine else None
+        if dt != torch.float32 and gn_bf16_io():
+            # PyTorch's GroupNorm takes a half-precision input's statistics in float32
+            return F.group_norm(x.to(dt), self.num_groups, w, b, self.eps)
+        w = None if w is None else w.float()
+        b = None if b is None else b.float()
+        return F.group_norm(x.float(), self.num_groups, w, b, self.eps).to(dt)
 
 
 class AttnBlockpp(nn.Module):
     """Multi-head spatial self-attention; the heads run ``tvc_torch.ops.attention``."""
 
     def __init__(self, channels: int, skip_rescale: bool = True, init_scale: float = 0.0,
-                 n_heads: int = 1, n_head_channels: int = -1, device=None):
+                 n_heads: int = 1, n_head_channels: int = -1, dtype=torch.float32, device=None):
         super().__init__()
         c = channels
         if n_head_channels == -1:
@@ -167,11 +215,11 @@ class AttnBlockpp(nn.Module):
                 raise ValueError(f"channels {c} not a multiple of n_head_channels {n_head_channels}")
             self.heads = c // n_head_channels
         self.skip_rescale = skip_rescale
-        self.GroupNorm_0 = GroupNormRef(c, eps=1e-6, device=device)
-        self.NIN_0 = NIN(c, c, device=device)
-        self.NIN_1 = NIN(c, c, device=device)
-        self.NIN_2 = NIN(c, c, device=device)
-        self.NIN_3 = NIN(c, c, init_scale=init_scale, device=device)
+        self.GroupNorm_0 = GroupNormRef(c, eps=1e-6, dtype=dtype, device=device)
+        self.NIN_0 = NIN(c, c, dtype=dtype, device=device)
+        self.NIN_1 = NIN(c, c, dtype=dtype, device=device)
+        self.NIN_2 = NIN(c, c, dtype=dtype, device=device)
+        self.NIN_3 = NIN(c, c, init_scale=init_scale, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
@@ -196,11 +244,12 @@ class GetActNorm(nn.Module):
     embedding -> SiLU. With ``emb_dim`` the norm is affine-free and
     ``Dense_0`` projects the activated embedding to scale and shift."""
 
-    def __init__(self, ch: int, emb_dim: Optional[int] = None, device=None):
+    def __init__(self, ch: int, emb_dim: Optional[int] = None, dtype=torch.float32, device=None):
         super().__init__()
         if emb_dim is not None:
-            self.Dense_0 = Dense(emb_dim, 2 * ch, device=device)
-        self.Norm_0 = GroupNormRef(ch, eps=1e-5, affine=emb_dim is None, device=device)
+            self.Dense_0 = Dense(emb_dim, 2 * ch, dtype=dtype, device=device)
+        self.Norm_0 = GroupNormRef(ch, eps=1e-5, affine=emb_dim is None, dtype=dtype,
+                                   device=device)
         self.has_emb = emb_dim is not None
 
     def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -219,18 +268,19 @@ class ResnetBlockBigGAN(nn.Module):
     def __init__(self, in_ch: int, out_ch: Optional[int] = None, temb_dim: Optional[int] = None,
                  up: bool = False, down: bool = False,
                  fir_kernel: Sequence[int] = (1, 3, 3, 1), skip_rescale: bool = True,
-                 init_scale: float = 0.0, device=None):
+                 init_scale: float = 0.0, dtype=torch.float32, device=None):
         super().__init__()
         out_ch = out_ch or in_ch
         self.up, self.down = up, down
         self.fir_kernel = tuple(fir_kernel)
         self.skip_rescale = skip_rescale
-        self.actnorm0 = GetActNorm(in_ch, temb_dim, device=device)
-        self.Conv_0 = DDPMConv(in_ch, out_ch, 3, device=device)
-        self.actnorm1 = GetActNorm(out_ch, temb_dim, device=device)
-        self.Conv_1 = DDPMConv(out_ch, out_ch, 3, init_scale=init_scale, device=device)
+        self.actnorm0 = GetActNorm(in_ch, temb_dim, dtype=dtype, device=device)
+        self.Conv_0 = DDPMConv(in_ch, out_ch, 3, dtype=dtype, device=device)
+        self.actnorm1 = GetActNorm(out_ch, temb_dim, dtype=dtype, device=device)
+        self.Conv_1 = DDPMConv(out_ch, out_ch, 3, init_scale=init_scale, dtype=dtype,
+                               device=device)
         if in_ch != out_ch or up or down:
-            self.Conv_2 = DDPMConv(in_ch, out_ch, 1, device=device)
+            self.Conv_2 = DDPMConv(in_ch, out_ch, 1, dtype=dtype, device=device)
         else:
             self.Conv_2 = None
 

@@ -5,6 +5,13 @@ The module list is generated by the same recipe as the reference
 state dict (``checkpoint_*.pt``) loads with no converter. The public forward
 takes and returns NHWC tensors, as the JAX package does; inside, activations
 are NCHW, the layout cuDNN's convolutions want.
+
+``dtype`` is the compute dtype (float32 or bfloat16), as the JAX package's
+``UNetMoreDDPM(dtype=...)``: the input frames are cast to it after the
+conditioning frames are joined, the time embedding is computed in float32
+and then cast, every layer computes in it, and the output is in it.
+``UNetMoreDDPM.with_dtype`` gives a UNet of another compute dtype over the
+same parameter storage (the ``f32:K`` precision schedule's float32 twin).
 """
 
 from __future__ import annotations
@@ -129,28 +136,31 @@ def _build_plan(spec: NCSNppSpec) -> List[dict]:
 class NCSNpp(nn.Module):
     """The 2-D channel-stacked-frames NCSN++ UNet (ncsnpp_more.py:32-392)."""
 
-    def __init__(self, spec: NCSNppSpec, device=None):
+    def __init__(self, spec: NCSNppSpec, dtype=torch.float32, device=None):
         super().__init__()
         self.spec = spec
+        self.dtype = dtype
         self.plan = _build_plan(spec)
         temb_dim = 4 * spec.ngf if spec.time_conditional else None
         mods = []
         for p in self.plan:
             kind = p["kind"]
             if kind == "dense":
-                mods.append(Dense(p["in"], p["out"], device=device))
+                mods.append(Dense(p["in"], p["out"], dtype=dtype, device=device))
             elif kind == "conv3":
                 mods.append(DDPMConv(p["in"], p["out"], 3, init_scale=p.get("init_scale", 1.0),
-                                     device=device))
+                                     dtype=dtype, device=device))
             elif kind == "res":
                 mods.append(ResnetBlockBigGAN(p["in"], p["out"], temb_dim, up=p.get("up", False),
                                               down=p.get("down", False),
-                                              skip_rescale=spec.skip_rescale, device=device))
+                                              skip_rescale=spec.skip_rescale, dtype=dtype,
+                                              device=device))
             elif kind == "attn":
                 mods.append(AttnBlockpp(p["ch"], skip_rescale=True, init_scale=0.0,
-                                        n_head_channels=spec.n_head_channels, device=device))
+                                        n_head_channels=spec.n_head_channels, dtype=dtype,
+                                        device=device))
             elif kind == "actnorm":
-                mods.append(GetActNorm(p["ch"], None, device=device))
+                mods.append(GetActNorm(p["ch"], None, dtype=dtype, device=device))
             else:
                 raise ValueError(kind)
         self.all_modules = nn.ModuleList(mods)
@@ -166,11 +176,11 @@ class NCSNpp(nn.Module):
 
         if cond is not None:
             x = torch.cat([x, cond], dim=-1)
-        x = x.permute(0, 3, 1, 2)
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
 
         temb = None
         if spec.time_conditional:
-            temb = mods[0](get_timestep_embedding(time_cond, spec.ngf))
+            temb = mods[0](get_timestep_embedding(time_cond, spec.ngf).to(self.dtype))
             temb = mods[1](F.silu(temb))
             m_idx = 2
 
@@ -244,9 +254,9 @@ class UNetMoreDDPM(nn.Module):
 
     ``device`` is resolved like every entry point of the port: ``"cuda"`` by
     default, which raises on a host without a card; ``"meta"`` builds the
-    parameter shapes only."""
+    parameter shapes only. ``dtype`` is the compute dtype."""
 
-    def __init__(self, cfg: Config, device="cuda"):
+    def __init__(self, cfg: Config, device="cuda", dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
         if cfg.model.spade:
@@ -260,8 +270,20 @@ class UNetMoreDDPM(nn.Module):
         if cfg.model.noise_in_cond:
             raise NotImplementedError(
                 "model.noise_in_cond is not ported yet (ROADMAP.md, queue A, capability surface)")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"the UNet computes in float32 or bfloat16, not {dtype}")
         self.cfg = cfg
-        self.unet = NCSNpp(NCSNppSpec.from_config(cfg), device=dev)
+        self.dtype = dtype
+        self.unet = NCSNpp(NCSNppSpec.from_config(cfg), dtype=dtype, device=dev)
+
+    def with_dtype(self, dtype, state: Optional[dict] = None) -> "UNetMoreDDPM":
+        """A UNet computing in ``dtype`` whose parameters are this one's
+        tensors (or ``state``'s), shared, not copied: an update of either is
+        seen by both."""
+        twin = UNetMoreDDPM(self.cfg, device="meta", dtype=dtype)
+        twin.load_state_dict(self.state_dict() if state is None else state, strict=True,
+                             assign=True)
+        return twin.train(self.training)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor,
                 cond: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -68,9 +68,10 @@ def _separable_4tap(k: Sequence[float]) -> Optional[np.ndarray]:
     return None
 
 
-def _taps(k4: np.ndarray):
-    # the coefficients as the f32 values the JAX package multiplies by
-    return [float(np.float32(c)) for c in k4]
+def _taps(k4: np.ndarray, dtype: torch.dtype):
+    # the coefficients as the JAX package multiplies by them: cast to the
+    # activation's dtype (float32, or the UNet's compute dtype)
+    return [torch.tensor(float(c), dtype=dtype).item() for c in k4]
 
 
 def _pad_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -122,7 +123,7 @@ def upsample_2d(x: torch.Tensor, k: Sequence[float] = (1, 3, 3, 1), factor: int 
     """FIR upsample by ``factor``; polyphase for factor 2 with a separable 4-tap ``k``."""
     k4 = _separable_4tap(k)
     if factor == 2 and k4 is not None:
-        taps = _taps(k4 * np.sqrt(np.float64(gain * factor ** 2)))
+        taps = _taps(k4 * np.sqrt(np.float64(gain * factor ** 2)), x.dtype)
         y = _upsample2x_axis(x, taps, spatial_axes[0])
         return _upsample2x_axis(y, taps, spatial_axes[1])
     kk = setup_kernel(k) * (gain * (factor ** 2))
@@ -137,7 +138,7 @@ def downsample_2d(x: torch.Tensor, k: Sequence[float] = (1, 3, 3, 1), factor: in
     """FIR downsample by ``factor``; polyphase for factor 2 with a separable 4-tap ``k``."""
     k4 = _separable_4tap(k)
     if factor == 2 and k4 is not None:
-        taps = _taps(k4 * np.sqrt(np.float64(gain)))
+        taps = _taps(k4 * np.sqrt(np.float64(gain)), x.dtype)
         y = _downsample2x_axis(x, taps, spatial_axes[0])
         return _downsample2x_axis(y, taps, spatial_axes[1])
     kk = setup_kernel(k) * gain

@@ -30,6 +30,13 @@ bits torch cannot reproduce), from explicit tensors: ``noise`` of shape
 noise in gamma mode), and ``warm_noise`` (B, ...), the warm start's draw. The
 per-step coefficients are rounded to float32 as the JAX package rounds them,
 and the update runs in float32.
+
+The carry keeps ``x_init``'s dtype: a bfloat16 predictor carries bfloat16
+between steps, while eps, the update and the noise are float32. The ``f32:K``
+precision schedule (``eps_fn_hi``, ``hi_steps``) runs DDPM's first
+``hi_steps`` executed steps through ``eps_fn_hi``, a float32 UNet, and the
+rest through ``eps_fn``; the draws are the same, in the same order, so
+``hi_steps >= n_steps`` is the all-``eps_fn_hi`` run exactly.
 """
 
 from __future__ import annotations
@@ -197,8 +204,9 @@ def _check_noise(noise, warm_noise, plan: NoisePlan, x_init: torch.Tensor, gener
 
 
 def _loop(x_init, eps_fn, sub, consts, plan: NoisePlan, cond, clip_before, final_only,
-          noise, warm_noise, same_noise, t_min, pre_noise_traj):
-    """The shared step loop of DDPM and DDIM."""
+          noise, warm_noise, same_noise, t_min, pre_noise_traj, eps_fn_hi=None, hi_steps=0):
+    """The shared step loop of DDPM and DDIM; steps below ``hi_steps`` call
+    ``eps_fn_hi``."""
     n_steps = plan.n_steps
     active, _ = active_steps(sub, n_steps, t_min)
     dtype = x_init.dtype
@@ -214,7 +222,8 @@ def _loop(x_init, eps_fn, sub, consts, plan: NoisePlan, cond, clip_before, final
             z = warm_noise.to(device=x.device, dtype=dtype)
             x = (float(consts["sqrt_a"][i]) * x + float(consts["sqrt_1ma"][i]) * z).to(dtype)
         label = torch.full((b,), int(consts["labels"][i]), dtype=torch.long, device=x.device)
-        eps = eps_fn(x, label, cond).float()
+        fn = eps_fn_hi if i < hi_steps else eps_fn
+        eps = fn(x, label, cond).float()
         xf = x.float()
         x0 = (xf - float(consts["sqrt_1ma"][i]) * eps) / float(consts["sqrt_a"][i])
         if clip_before:
@@ -254,15 +263,24 @@ def ddpm_sampler(
     generator: Optional[torch.Generator] = None,
     noise: Optional[torch.Tensor] = None,
     warm_noise: Optional[torch.Tensor] = None,
+    eps_fn_hi: Optional[EpsFn] = None,
+    hi_steps: int = 0,
 ) -> torch.Tensor:
     """Ancestral DDPM sampling. Returns the final sample with a leading axis of 1
-    (``final_only``) or the (n_steps, B, ...) trajectory of pre-noise states."""
+    (``final_only``) or the (n_steps, B, ...) trajectory of pre-noise states.
+    With ``eps_fn_hi`` the first ``hi_steps`` executed steps call it (the
+    ``f32:K`` precision schedule, ``final_only`` only, as in the JAX package)."""
     consts = step_constants(sub, denoise=denoise, just_beta=just_beta)
     plan = ddpm_noise_plan(sub, denoise=denoise, just_beta=just_beta, gamma=gamma, t_min=t_min,
                            same_noise=same_noise)
     noise, warm_noise = _check_noise(noise, warm_noise, plan, x_init, generator)
+    if eps_fn_hi is None:
+        hi_steps = 0
+    elif hi_steps > 0 and not final_only:
+        raise ValueError("the f32:K precision schedule returns the final sample only")
     return _loop(x_init, eps_fn, sub, consts, plan, cond, clip_before, final_only, noise,
-                 warm_noise, same_noise, t_min, pre_noise_traj=True)
+                 warm_noise, same_noise, t_min, pre_noise_traj=True, eps_fn_hi=eps_fn_hi,
+                 hi_steps=hi_steps)
 
 
 @torch.no_grad()

@@ -4,12 +4,16 @@ choice of convolution algorithm and with its timed choice
 process (cuDNN caches one choice per shape for a process, whichever mode
 made it).
 
-    python -m tvc_torch.tools.conv_algorithms [--batches 1 2 4 8] [--calls 5]
+    python -m tvc_torch.tools.conv_algorithms [--batches 1 2 4 8] [--calls 5] [--dtype bf16]
     python -m tvc_torch.tools.conv_algorithms --train [--batches 8] [--calls 5]
 
 Prints one JSON line per (mode, batch): the first call's host seconds (the
 timing of the algorithms included), the mean ms of ``--calls`` calls by CUDA
-events, and whether two calls gave the same bits. With ``--train`` a call is
+events, eager (``ms``) and replayed as one CUDA graph (``graph_ms``, the
+card's time where the host's launches hold the eager loop back), and
+whether two calls gave the same bits. ``--dtype bf16`` times the
+throughput path's UNet: bf16 compute on bf16-stored weights, bf16 inputs.
+With ``--train`` (float32 only) a call is
 one DSM train step (forward, backward, clipping, Adam, EMA), which enters
 ``batched_conv_algorithms`` at its batch (the heuristic mode patches that
 to do nothing in its own process), timed by the host clock around
@@ -30,7 +34,10 @@ from typing import List, Optional
 MODES = ("heuristic", "timed")
 
 
-def _measure(mode: str, batches: List[int], calls: int) -> None:
+DTYPES = ("f32", "bf16")
+
+
+def _measure(mode: str, batches: List[int], calls: int, dtype: str = "f32") -> None:
     import contextlib
 
     import torch
@@ -41,13 +48,16 @@ def _measure(mode: str, batches: List[int], calls: int) -> None:
 
     set_numerics()
     cfg = Config()
-    model = FramePredictor.create(cfg, seed=0, device="cuda").model
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    model = FramePredictor.create(cfg, seed=0, device="cuda", dtype=dt,
+                                  params_dtype=dt if dtype == "bf16" else None).model
     size, c = cfg.data.image_size, cfg.data.channels
     for b in batches:
         g = torch.Generator(device="cuda").manual_seed(b)
-        x = torch.randn((b, size, size, c * cfg.data.num_frames), generator=g, device="cuda")
+        x = torch.randn((b, size, size, c * cfg.data.num_frames), generator=g,
+                        device="cuda").to(dt)
         cond = torch.rand((b, size, size, c * cfg.data.num_frames_cond), generator=g,
-                          device="cuda")
+                          device="cuda").to(dt)
         t = torch.full((b,), 500, device="cuda")
         scope = (batched_conv_algorithms(b, "cuda") if mode == "timed"
                  else contextlib.nullcontext())
@@ -64,9 +74,24 @@ def _measure(mode: str, batches: List[int], calls: int) -> None:
                 out = model(x, t, cond)
             end.record()
             end.synchronize()
-        ms = start.elapsed_time(end) / calls
-        print(json.dumps({"mode": mode, "batch": b, "first_call_s": first_s, "ms": ms,
-                          "ms_per_chain": ms / b, "rerun_identical": bool(torch.equal(first, out)),
+            ms = start.elapsed_time(end) / calls
+            # the same calls replayed as a CUDA graph: the card's time, where
+            # the eager loop may wait on the host's launches
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(calls):
+                    model(x, t, cond)
+            graph.replay()
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            graph_ms = start.elapsed_time(end) / calls
+            del graph
+        print(json.dumps({"mode": mode, "dtype": dtype, "batch": b, "first_call_s": first_s,
+                          "ms": ms, "graph_ms": graph_ms, "ms_per_chain": ms / b,
+                          "graph_ms_per_chain": graph_ms / b,
+                          "rerun_identical": bool(torch.equal(first, out)),
                           "gpu": torch.cuda.get_device_name(0)}), flush=True)
 
 
@@ -119,17 +144,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--batches", nargs="*", type=int, default=[1, 2, 4, 8])
     ap.add_argument("--calls", type=int, default=5)
     ap.add_argument("--train", action="store_true", help="time train steps, not forwards")
+    ap.add_argument("--dtype", choices=DTYPES, default="f32",
+                    help="the UNet's compute dtype (bf16: the throughput path)")
     ap.add_argument("--mode", choices=MODES, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.train and args.dtype != "f32":
+        ap.error("training runs in float32 only")
     if args.mode:
-        (_measure_train if args.train else _measure)(args.mode, args.batches, args.calls)
+        if args.train:
+            _measure_train(args.mode, args.batches, args.calls)
+        else:
+            _measure(args.mode, args.batches, args.calls, args.dtype)
         return 0
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     rc = 0
     for mode in MODES:
         proc = subprocess.run([sys.executable, "-m", "tvc_torch.tools.conv_algorithms",
-                               "--mode", mode, "--calls", str(args.calls), "--batches",
-                               *map(str, args.batches), *(["--train"] if args.train else [])],
+                               "--mode", mode, "--calls", str(args.calls), "--dtype", args.dtype,
+                               "--batches", *map(str, args.batches),
+                               *(["--train"] if args.train else [])],
                               cwd=root, timeout=1800)
         rc = rc or proc.returncode
     return rc
