@@ -4,8 +4,9 @@
 byte by a receiver in a fresh process; then the serving paths, the rate
 sweep, the evaluation path (FVD, LPIPS backbones, FID, the anchors), and
 the sampler layer (DDIM, F-PNDM, every DDPM option, the Langevin samplers)
-with every prediction replayed as a CUDA graph, the training path, and the
-bf16 throughput path with its harness.
+with every prediction replayed as a CUDA graph, the training path, the
+bf16 throughput path with its harness, and the rest of the model zoo (the
+SPADE, 3-D and pseudo-3-D NCSN++ at full width, the library families).
 
     python3 chip_smoke.py
 
@@ -133,13 +134,30 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
     schedule over the float32 masters: ``f32:101`` equal to the float32
     update and ``f32:0`` equal to the bf16 update (bf16-stored weights) bit
     for bit, and the walls of ``f32:10``, bf16 and float32 updates; (d) the
-    harness ``python -m tvc_torch.bench.throughput`` in a fresh process (100
-    steps, bf16), then ``--dtype f32 --quick``, each ending in ``bench.py``'s
-    last line.
+    harness ``python -m tvc_torch.bench.throughput --quick`` in a fresh
+    process (bf16; 10 steps scaled to the 100-step budget, cut from 100 for
+    the run's time), then ``--dtype f32 --quick``, each ending in
+    ``bench.py``'s last line.
 
-Every path above (7, 8, 10-17) must launch the attention kernel 1010 times per
-DDPM or DDIM update or lockstep sweep (F-PNDM 1090, the warm start 960), 10 per
-train step; the ``kernels`` line sums their launches.
+18. the model zoo at the flagship widths (``Config()`` with the arch
+    switched), for the SPADE NCSN++ (347.2M parameters), the 3-D NCSN++
+    (1010.6M) and the pseudo-3-D NCSN++ (706.5M): (a) one B = 1 call through
+    the kernel against the plain attention (10 launches; b = 7 and 5 in the
+    3-D nets), its time as a replayed graph, its peak memory and a profile
+    (what cuDNN's heuristic runs); (b) for SPADE (100 steps) and the
+    pseudo-3-D net (``sampling.subsample=10``), a GOP of 7 frames rebuilt
+    byte for byte by ``gop receive`` in a fresh process; (c) one update
+    through the graph against the eager loop, byte for byte (the 3-D nets at
+    11 UNet calls); (d) the library families on the card against the CPU:
+    the legacy UNet through ``create_model`` at the ``Config()`` width, the
+    NCSNv2 blocks, the norm zoo, ``fused_leaky_relu`` and the ELIC library
+    layers. Phase 3 also holds the kernel against its plain version at the
+    3-D nets' shapes (float32, b = 7 and 5 at the three levels).
+
+Every path above (7, 8, 10-18) must launch the attention kernel 1010 times per
+DDPM or DDIM update or lockstep sweep (F-PNDM 1090, the warm start 960, the
+3-D nets' 11-call updates 110), 10 per train step; the ``kernels`` line sums
+their launches.
 
 The last lines are the ``kernels`` JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -170,6 +188,19 @@ HBM_BPS = 3.35e12    # H100 SXM device memory bytes/s
 # the flagship UNet's attention levels: (name, tokens T, heads H, launches per UNet call)
 LEVELS = [("32x32", 1024, 2, 3), ("16x16", 256, 3, 3), ("8x8", 64, 4, 4)]
 HEAD_DIM = 192
+# phase 18: the three other networks UNetMoreDDPM builds, each at the flagship
+# widths (Config() with the arch switched) and the parameter count it must have
+ZOO = (("spade", {"model.spade": True}, 347.2),
+       ("unetmore3d", {"model.arch": "unetmore3d"}, 1010.6),
+       ("unetmorepseudo3d", {"model.arch": "unetmorepseudo3d"}, 706.5))
+ZOO_3D_SUBSAMPLE = 10  # the 3-D nets' updates: 10 DDPM steps and the denoise, cut for time
+ZOO_GOP = ("spade", "unetmorepseudo3d")  # sent, and received by a fresh process
+ZOO_GOP_FRAMES = 7  # the keyframe pair and one update of 5 frames, or more after a fallback
+# the 3-D nets fold their frames into the spatial attention's batch: b = 7
+# (n_frames) on the way down and in the middle, 5 (num_frames) on the way up;
+# launches per UNet call at each level
+ZOO_LEVEL_CALLS = {7: {"32x32": 2, "16x16": 2, "8x8": 3},
+                   5: {"32x32": 1, "16x16": 1, "8x8": 1}}
 # every batch the driven paths predict at: B = 1 (phases 4-10), 2 (run_batched),
 # 4 (the CLI sweep), 8 (BatchedGOPRunner); each has its own launch plan
 BATCHES = (1, 2, 4, 8)
@@ -326,6 +357,43 @@ def phase_kernels(torch, attn, ptxas):
                        "share_of_bound": bound / ms, **regs, **info}
                 rows.append(row)
                 log("attention_shape " + json.dumps(row))
+    return rows
+
+
+def phase_kernels_zoo(torch, attn, ptxas):
+    """Phase 3, continued: the kernel at the 3-D nets' shapes (float32), where
+    the frames fold into the batch of the spatial attention: b = 7 on the way
+    down and in the middle, b = 5 on the way up, at B = 1."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for b, calls in ZOO_LEVEL_CALLS.items():
+        for name, t, h, _ in LEVELS:
+            q, k, v = (head_view(torch.randn((b, t, h * HEAD_DIM), generator=g, device="cuda"),
+                                 b, h, t, HEAD_DIM) for _ in range(3))
+            out = attn.attention(q, k, v)
+            ref = attn.attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            if not err <= F32_TOL or not torch.isfinite(out).all():
+                fail(f"attention {name} b={b} (3-D nets): max|kernel-plain| {err} > {F32_TOL}")
+            if not torch.equal(attn.attention(q, k, v), out):
+                fail(f"attention {name} b={b} (3-D nets): two launches differ")
+            plan = attn.attention_plan(b, h, t, HEAD_DIM, torch.float32)
+            ms = graph_ms(torch, lambda: attn.attention(q, k, v), 50)
+            plain_ms = graph_ms(torch, lambda: attn.attention_plain(q, k, v), 50)
+            lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 50)
+            bound, by_ops = attention_bound_ms(b, h, t, HEAD_DIM, 4, F32_PEAK)
+            row = {"level": name, "B": b, "T": t, "H": h, "d": HEAD_DIM, "dtype": "float32",
+                   "per_unet_call": calls[name], "nets": "unetmore3d, unetmorepseudo3d",
+                   "splits": plan.splits, "blocks": plan.blocks, "max_abs_err": err,
+                   "tol": F32_TOL, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": bound, "bound_by": "operations" if by_ops else "bytes",
+                   "share_of_bound": bound / ms,
+                   **ptxas[("float32", -(-HEAD_DIM // 64))]}
+            rows.append(row)
+            log("attention_shape_3d " + json.dumps(row))
     return rows
 
 
@@ -1805,6 +1873,7 @@ def phase_train_cli(torch, tmp, video):
 
 
 TRAIN_THEN_PREDICT = "--train-then-predict"  # phase 16e's fresh process
+ZOO_ONLY = "--zoo-only"  # phases 1-3 and 18 alone, for bring-up runs; prints no result
 
 
 def unet_b1(torch, predictor):
@@ -2160,10 +2229,268 @@ def phase_bf16(torch, attn, layers, predictor, coder, lpips, video):
     launches.update(more)
     del pred16
     torch.cuda.empty_cache()
-    rows["harness_bf16"] = harness_process([], "bf16")
+    # --quick (10 steps scaled to 100) since phase 18 came in, for the run's time
+    rows["harness_bf16"] = harness_process(["--quick"], "bf16")
     rows["harness_f32_quick"] = harness_process(["--dtype", "f32", "--quick"], "f32_quick")
     launches["harness_bf16"] = rows["harness_bf16"]["launches"]
     launches["harness_f32_quick"] = rows["harness_f32_quick"]["launches"]
+    return rows, launches
+
+
+def zoo_config(mods):
+    """The flagship Config() with ``mods`` (and the 3-D nets' step cut), and
+    the --config-mod list a receiver needs for it."""
+    from tvc_torch.core.config import Config
+
+    cfg = Config()
+    cfg.codec.entropy_backend = "device"
+    for field, value in mods.items():
+        section, key = field.split(".")
+        setattr(getattr(cfg, section), key, value)
+    config_mods = [f"{k}={v}" for k, v in mods.items()]
+    if cfg.model.arch != "unetmore":
+        cfg.sampling.subsample = ZOO_3D_SUBSAMPLE
+        config_mods.append(f"sampling.subsample={ZOO_3D_SUBSAMPLE}")
+    return cfg, config_mods
+
+
+def device_seeded_predictor(torch, cfg):
+    """A predictor on weights drawn on the card (the DDPM init from a CUDA
+    generator, the zero-scaled layers redrawn): no host draws, for a net that
+    no receiver rebuilds."""
+    from tvc_torch.models.diffusion import layers
+    from tvc_torch.models.diffusion.ncsnpp import UNetMoreDDPM
+    from tvc_torch.pipeline.predictor import FramePredictor
+
+    model = UNetMoreDDPM(cfg, device="meta").to_empty(device="cuda")
+    layers.init_params(model, torch.Generator(device="cuda").manual_seed(0))
+    layers.redraw_zero_scaled_(model, torch.Generator().manual_seed(1))
+    return FramePredictor(cfg, model)
+
+
+def phase_zoo_arch(torch, attn, layers, name, mods, millions, coder, lpips, video):
+    """Phase 18a-c for one network: (a) one B = 1 call through the kernel
+    against the plain attention, its 10 launches, its time as a replayed
+    graph, its peak memory and a profile (what cuDNN's heuristic runs); (b)
+    for the nets in ZOO_GOP, a GOP of ZOO_GOP_FRAMES frames rebuilt byte for
+    byte by ``gop receive`` in a fresh process; (c) one update through the
+    graph against the eager loop, byte for byte. Returns its row and the
+    attention launches of its paths."""
+    from unittest import mock
+
+    import tvc_torch.cli as cli
+    from tvc_torch.pipeline.sender import Sender, run_gop
+
+    cfg, config_mods = zoo_config(mods)
+    per_call = sum(n for *_, n in LEVELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # a net that a receiver rebuilds takes the receiver's seeded host draws
+    predictor = (cli.build_predictor(cfg, "cuda") if name in ZOO_GOP
+                 else device_seeded_predictor(torch, cfg))
+    torch.cuda.synchronize()
+    model = predictor.model
+    n_params = sum(p.numel() for p in model.parameters())
+    row = {"arch": name, "n_params": n_params, "weights_gb": n_params * 4 / 1e9,
+           "build_s": time.perf_counter() - t0, "host_draws": name in ZOO_GOP,
+           "subsample": cfg.sampling.subsample, "unet_calls_per_update": predictor.n_steps,
+           "config_mods": config_mods}
+    if round(n_params / 1e6, 1) != millions:
+        fail(f"{name}: expected {millions}M parameters at the flagship widths, got {n_params}")
+
+    # (a) one call at B = 1
+    size, c = cfg.data.image_size, cfg.data.channels
+    g = torch.Generator(device="cuda").manual_seed(18)
+    x = torch.randn((1, size, size, c * cfg.data.num_frames), generator=g, device="cuda")
+    cond = torch.rand((1, size, size, c * cfg.data.num_frames_cond), generator=g,
+                      device="cuda") * 2 - 1
+    t = torch.tensor([500], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what the process holds besides: the codec, LPIPS, earlier phases' tensors
+    row["allocated_gb_before_call"] = torch.cuda.memory_allocated() / 1e9 - row["weights_gb"]
+    with torch.no_grad():
+        before = attn.launches
+        out = model(x, t, cond)
+        torch.cuda.synchronize()
+        row["call_attention_launches"] = attn.launches - before
+        row["call_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        with mock.patch.object(layers, "attention", attn.attention_plain):
+            ref = model(x, t, cond)
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        row["kernel_vs_plain_max_abs"] = (out - ref).abs().max().item()
+        row["kernel_vs_plain_rel"] = row["kernel_vs_plain_max_abs"] / scale
+        row["finite"] = bool(torch.isfinite(out).all())
+        row["reserved_gb_before_capture"] = torch.cuda.memory_reserved() / 1e9
+        row["ms"] = graph_ms(torch, lambda: model(x, t, cond), 2, replays=2)
+        prof_lines = profile_unet(torch, lambda: model(x, t, cond))
+    log(f"zoo_call {name} " + json.dumps(row))
+    for line in prof_lines:
+        log(f"zoo_profile {name}: " + line)
+    if out.shape != x.shape or not row["finite"] or not scale > 1e-2:
+        fail(f"{name}: one call gave {tuple(out.shape)}, finite {row['finite']}, "
+             f"max|eps| {scale}")
+    if row["call_attention_launches"] != per_call:
+        fail(f"{name}: one call launched {row['call_attention_launches']} attention kernels, "
+             f"not {per_call}")
+    if not row["kernel_vs_plain_rel"] <= UNET_REL_TOL:
+        fail(f"{name}: the call through the kernel disagrees with the plain attention: "
+             f"rel {row['kernel_vs_plain_rel']} > {UNET_REL_TOL}")
+    del out, ref
+
+    launches = {}
+    per_update = predictor.n_steps * per_call
+    # (b) a GOP, and a receiver in a fresh process
+    if name in ZOO_GOP:
+        sender = Sender(GOP_THRESHOLD, cfg, predictor, lpips)
+        torch.cuda.reset_peak_memory_stats()
+        attn.reset_launches()
+        gop, wall = timed(torch, lambda: run_gop(sender, coder, video[0], cfg.seed,
+                                                  ZOO_GOP_FRAMES, cfg.codec.patch,
+                                                  keep_streams=True))
+        n = attn.launches
+        launches[f"zoo_{name}_gop"] = n
+        recv = receive_in_fresh_process(gop, cfg, coder, ["codec.entropy_backend=device",
+                                                          *config_mods])
+        gop_row = {"sender_wall_s": wall, "n_updates": gop.n_updates, "accepts": gop.accepts,
+                   "update_s": gop.update_s, "bits": gop.bits, "attention_launches": n,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **recv}
+        log(f"zoo_gop {name} " + json.dumps(gop_row))
+        row["gop"] = gop_row
+        if not recv["byte_identical"]:
+            fail(f"{name}: the receiver's frames differ from the sender's")
+        if n != per_update * gop.n_updates:
+            fail(f"{name}: the GOP launched {n} attention kernels over {gop.n_updates} "
+                 f"updates, not {per_update} each")
+        frames = gop.x_ge[0]
+        if not np.isfinite(frames).all() or frames.min() < 0 or frames.max() > 1:
+            fail(f"{name}: the GOP's frames are not finite frames in [0, 1]")
+
+    # (c) an update through the graph against the eager loop
+    n_cond = cfg.data.num_frames_cond
+    cond1 = video[0, :n_cond].transpose(1, 2, 0, 3).reshape(1, size, size, c * n_cond)
+    x_init, noise = predictor.draws(torch.Generator(device="cuda").manual_seed(70), 1)
+    if graph_at(predictor, 1) is None:  # the warm-up call and the capture
+        _, row["first_update_s"], _ = update_times(
+            torch, lambda: predictor.generate(cond1, x_init=x_init, noise=noise))
+    entry = graph_at(predictor, 1)
+    replays = entry.replays
+    attn.reset_launches()
+    graphed, g_wall, g_dev = update_times(
+        torch, lambda: predictor.generate(cond1, x_init=x_init, noise=noise))
+    eager, e_wall, e_dev = update_times(
+        torch, lambda: eager_generate(predictor, cond1, x_init, noise))
+    launches[f"zoo_{name}_graph_vs_eager"] = attn.launches
+    update = {"graph_wall_s": g_wall, "graph_event_s": g_dev, "eager_wall_s": e_wall,
+              "eager_event_s": e_dev, "capture_s": entry.capture_s,
+              "pool_gb": entry.pool_bytes / 1e9, "replays_in_update": entry.replays - replays,
+              "attention_launches": attn.launches,
+              "byte_identical": graphed.cpu().numpy().tobytes() == eager.cpu().numpy().tobytes()}
+    log(f"zoo_graph_vs_eager {name} " + json.dumps(update))
+    row["update"] = update
+    if update["replays_in_update"] != predictor.n_steps:
+        fail(f"{name}: the update replayed its UNet graph {update['replays_in_update']} times, "
+             f"not {predictor.n_steps}")
+    if not update["byte_identical"]:
+        fail(f"{name}: the graphed update differs from the eager loop")
+    if attn.launches != 2 * per_update:
+        fail(f"{name}: the two updates launched {attn.launches} attention kernels, not "
+             f"2 x {per_update}")
+    if not torch.isfinite(graphed).all() or graphed.min() < 0 or graphed.max() > 1:
+        fail(f"{name}: the update's frames are not finite frames in [0, 1]")
+    del predictor, model, graphed, eager, entry
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+ZOO_CARD_TOL = 1e-4  # phase 18d: card against CPU, max |diff| / max |CPU|
+
+
+def zoo_library_modules(torch):
+    """(name, module, inputs) of each library family at a size its users
+    run: the legacy UNet through ``create_model`` at the Config() width (on
+    32x32 frames), the NCSNv2 blocks with their conditional norms, the norm
+    zoo, the ELIC library layers at the codec's width N = 192."""
+    from tvc_torch.core.config import Config
+    from tvc_torch.models import registry
+    from tvc_torch.models.codec import layers as codec
+    from tvc_torch.models.diffusion import ncsnv2_blocks as nb
+    from tvc_torch.models.diffusion import normalization as norms
+
+    g = torch.Generator().manual_seed(18)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g)
+
+    cfg = Config()
+    cfg.model.arch = "unet"
+    cfg.data.image_size = 32
+    labels = torch.tensor([3, 900])
+    x64, x64b = rand(2, 64, 32, 32), rand(2, 64, 16, 16)
+    cond_norm = norms.get_normalization("InstanceNorm++", conditional=True, num_classes=1000)
+    mods = [
+        ("legacy_unet", registry.create_model(cfg, device="cpu"),
+         (rand(2, 32, 32, 15), torch.tensor([3, 900]), rand(2, 32, 32, 6))),
+        ("refine_block", nb.RefineBlock((64, 64), 64), ([x64, x64b], (32, 32))),
+        ("cond_refine_block", nb.CondRefineBlock((64, 64), 64, cond_norm),
+         ([x64, x64b], labels, (32, 32))),
+        ("instance_norm", norms.InstanceNorm2d(64), (x64,)),
+        ("instance_norm_plus", norms.InstanceNorm2dPlus(64), (x64,)),
+        ("variance_norm", norms.VarianceNorm2d(64), (x64,)),
+        ("cond_variance_norm", norms.ConditionalVarianceNorm2d(64, 1000), (x64, labels)),
+        ("masked_conv_A", codec.MaskedConv2d(192, 192, 5, "A"), (rand(1, 192, 32, 32),)),
+        ("residual_block_with_stride", codec.ResidualBlockWithStride(192, 192),
+         (rand(1, 192, 32, 32),)),
+        ("residual_block_upsample", codec.ResidualBlockUpsample(192, 192),
+         (rand(1, 192, 16, 16),)),
+        ("residual_block", codec.ResidualBlock(192, 192), (rand(1, 192, 32, 32),)),
+    ]
+    return mods
+
+
+def phase_zoo_library(torch):
+    """Phase 18d: a forward of each library family on the card against the
+    same module on the CPU, and ``fused_leaky_relu``."""
+    from tvc_torch.ops.fused_act import fused_leaky_relu
+
+    def to(args, dev):
+        return [to(a, dev) if isinstance(a, list) else
+                (a.to(dev) if torch.is_tensor(a) else a) for a in args]
+
+    rows = {}
+    for name, module, args in zoo_library_modules(torch):
+        with torch.no_grad():
+            want = module.eval()(*args)
+            module.cuda()
+            got = module(*to(args, "cuda"))
+            torch.cuda.synchronize()
+            ms = time_ms(torch, lambda: module(*to(args, "cuda")), 5)
+        rel = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+        rows[name] = {"rel_err": rel, "ms": ms, "shape": list(got.shape),
+                      "params": sum(p.numel() for p in module.parameters())}
+        if not rel <= ZOO_CARD_TOL or not torch.isfinite(got).all():
+            fail(f"phase 18d {name}: card against CPU rel {rel} > {ZOO_CARD_TOL}")
+    x = torch.randn(2, 32, 32, 64, generator=torch.Generator().manual_seed(19))
+    bias = torch.linspace(-1, 1, 64)
+    got = fused_leaky_relu(x.cuda(), bias.cuda()).cpu()
+    rows["fused_leaky_relu"] = {"rel_err": ((got - fused_leaky_relu(x, bias)).abs().max()
+                                            / got.abs().max()).item()}
+    if not rows["fused_leaky_relu"]["rel_err"] <= ZOO_CARD_TOL:
+        fail(f"phase 18d fused_leaky_relu: card against CPU {rows['fused_leaky_relu']}")
+    log("zoo_library " + json.dumps(rows))
+    return rows
+
+
+def phase_zoo(torch, attn, layers, coder, lpips, video):
+    """Phase 18: the SPADE, 3-D and pseudo-3-D NCSN++ at the flagship widths
+    (18a-c, ``phase_zoo_arch``), then the library families on the card (18d)."""
+    rows, launches = {}, {}
+    for name, mods, millions in ZOO:
+        rows[name], more = phase_zoo_arch(torch, attn, layers, name, mods, millions, coder,
+                                          lpips, video)
+        launches.update(more)
+    rows["library"] = phase_zoo_library(torch)
     return rows, launches
 
 
@@ -2206,6 +2533,7 @@ def main() -> None:
         fail(f"expected 2 spill-free instantiations at d = {HEAD_DIM}, got {at_192}")
 
     rows = phase_kernels(torch, attn, ptxas)
+    zoo_rows = phase_kernels_zoo(torch, attn, ptxas)
     if "--sweep" in sys.argv[1:]:
         phase_sweep(torch, attn)
 
@@ -2217,6 +2545,15 @@ def main() -> None:
 
     cfg = Config()
     cfg.codec.entropy_backend = "device"
+    if ZOO_ONLY in sys.argv[1:]:
+        t18 = time.perf_counter()
+        zoo, zoo_launches = phase_zoo(torch, attn, layers, cli.build_coder(cfg, "cuda"),
+                                      LPIPSMetric.create(seed=0, device="cuda"),
+                                      synthetic_video(n=GOP_FRAMES))
+        log("launches " + json.dumps(zoo_launches))
+        log(f"zoo-only: phase 18 took {time.perf_counter() - t18:.1f} s, the script "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return
     predictor = cli.build_predictor(cfg, "cuda")
     unet = phase_unet(torch, attn, layers, predictor)
 
@@ -2256,6 +2593,12 @@ def main() -> None:
     t17 = time.perf_counter()
     bf16, bf16_launches = phase_bf16(torch, attn, layers, predictor, coder, lpips, video)
     bf16_s = time.perf_counter() - t17
+    graph_stats = predictor.graphs.stats()
+    del predictor
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    zoo, zoo_launches = phase_zoo(torch, attn, layers, coder, lpips, video)
+    zoo_s = time.perf_counter() - t18
     path_launches = {"run_gop": gop["attention_launches"],
                      "device_gop": device_gop["attention_launches"],
                      "fused_run": fused["attention_launches"],
@@ -2274,7 +2617,7 @@ def main() -> None:
                      "cli_train_resumed": training["cli"]["resumed"]["launches"],
                      "train_loop": training["loop"]["launches"],
                      "b1_update_after_training": training["b1"]["launches"],
-                     **bf16_launches}
+                     **bf16_launches, **zoo_launches}
     log("launches " + json.dumps(path_launches))
     main_launches = sum(path_launches.values())
     if min(path_launches.values()) <= 0:
@@ -2333,7 +2676,7 @@ def main() -> None:
         "graph_vs_eager": samplers["graph_vs_eager"],
         "sampler_gop_walls_s": {v: [samplers[v]["sender_wall_s"], samplers[v]["receiver_wall_s"]]
                                 for v in ("ddim", "fpndm")},
-        "graphs": predictor.graphs.stats(),
+        "graphs": graph_stats,
         "train_phase_s": training_s, "train": training["summary"],
         "bf16_phase_s": bf16_s,
         "bf16_unet": {b: {k: r[k] for k in ("bf16_ms", "f32_ms", "bf16_speedup",
@@ -2346,6 +2689,15 @@ def main() -> None:
                           if isinstance(v, dict) and "wall_s" in v},
         "harness_bf16": bf16["harness_bf16"]["last_line"],
         "harness_f32_quick": bf16["harness_f32_quick"]["last_line"],
+        "zoo_phase_s": zoo_s,
+        "zoo": {name: {k: zoo[name][k] for k in ("ms", "call_peak_mem_gb", "build_s",
+                                                 "kernel_vs_plain_rel")}
+                | {"update": {k: zoo[name]["update"][k]
+                              for k in ("graph_wall_s", "graph_event_s", "eager_wall_s")}}
+                for name, *_ in ZOO},
+        "attention_3d_per_unet_call": {
+            k: sum(r[k] * r["per_unet_call"] for r in zoo_rows)
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
         "numerics": numerics(),
         "total_s": time.perf_counter() - t_start}))
     kernels = [{

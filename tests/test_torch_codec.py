@@ -378,12 +378,9 @@ def test_make_elic_is_seeded():
 
 
 def test_paths_left_out_raise(codecs):
-    """The library-only layers are still left out; the fused forwards, the
-    simulation coder and code_frames_device are ported (tests/test_torch_serving.py)."""
-    for call in (lambda: layers.GDN(8), lambda: layers.SubpelConv3x3(8),
-                 lambda: layers.MaskedConv2d(8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    """The fused forwards, the simulation coder and code_frames_device are
+    ported (tests/test_torch_serving.py); the library-only layers are held
+    against the JAX package in tests/test_torch_zoo.py."""
     model = codecs[0]
     x = torch.zeros(1, 3, 64, 64)
     with torch.no_grad():

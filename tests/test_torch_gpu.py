@@ -585,3 +585,100 @@ def test_full_width_train_step_kernel_matches_plain(cuda):
     moved = sum(not torch.equal(p, before[n]) for n, p in state.params.items())
     ema_moved = sum(not torch.equal(e, ema_before[n]) for n, e in state.ema.items())
     assert moved > 0 and ema_moved > 0
+
+
+# ---------------------------------------------------------------- the model zoo
+
+
+def _random_weights_(module, seed=0, scale=0.08):
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():  # no zero-init layer hides the attention or the output
+        for p in module.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * scale)
+    return module
+
+
+@pytest.mark.parametrize("mods", [{"spade": True, "spade_dim": 16}, {"arch": "unetmore3d"},
+                                  {"arch": "unetmorepseudo3d"}],
+                         ids=["spade", "unetmore3d", "unetmorepseudo3d"])
+def test_zoo_arch_forward_on_card_matches_cpu(cuda, mods):
+    """A narrow SPADE, 3-D or pseudo-3-D NCSN++ on the card against the same
+    weights on the CPU; 10 attention launches a call (b = 7 and 5 on the 3-D
+    nets), the kernel against the plain attention inside the net."""
+    from unittest import mock
+
+    from tvc_torch.models.diffusion import layers
+
+    cfg = Config()
+    cfg.data.image_size = 32
+    cfg.model.ngf = 16
+    cfg.model.n_head_channels = 8
+    cfg.model.attn_resolutions = (4, 8, 16)
+    for k, v in mods.items():
+        setattr(cfg.model, k, v)
+    model = _random_weights_(UNetMoreDDPM(cfg, device="cpu").eval())
+    g = torch.Generator().manual_seed(2)
+    x, cond = torch.randn((1, 32, 32, 15), generator=g), torch.randn((1, 32, 32, 6), generator=g)
+    t = torch.tensor([10])
+    with torch.no_grad():
+        want = model(x, t, cond)
+        model = model.to("cuda")
+        before = attn.launches
+        got = model(x.cuda(), t.cuda(), cond.cuda())
+        launches = attn.launches - before
+        with mock.patch.object(layers, "attention", attn.attention_plain):
+            plain = model(x.cuda(), t.cuda(), cond.cuda())
+    scale = want.abs().max().item()
+    assert scale > 1e-3 and launches == 10
+    assert (got.cpu() - want).abs().max().item() <= 1e-4 * scale
+    assert (got - plain).abs().max().item() <= 1e-4 * scale
+
+
+def test_zoo_library_on_card_matches_cpu(cuda):
+    """The legacy UNet through create_model, the NCSNv2 blocks, the norm zoo,
+    fused_leaky_relu and the ELIC library layers: card against CPU."""
+    from tvc_torch.models import registry
+    from tvc_torch.models.codec import layers as codec
+    from tvc_torch.models.diffusion import ncsnv2_blocks as nb
+    from tvc_torch.models.diffusion import normalization as norms
+    from tvc_torch.ops.fused_act import fused_leaky_relu
+
+    g = torch.Generator().manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g)
+
+    cfg = Config()
+    cfg.model.arch = "unet"
+    cfg.model.ngf = 32
+    cfg.data.image_size = 16
+    labels = torch.tensor([1, 7])
+    cond_norm = norms.get_normalization("InstanceNorm++", conditional=True, num_classes=10)
+    x, x2 = rand(2, 8, 16, 16), rand(2, 8, 8, 8)
+    cases = [
+        (registry.create_model(cfg, device="cpu"),
+         (rand(2, 16, 16, 15), torch.tensor([3, 900]), rand(2, 16, 16, 6))),
+        (nb.CondRefineBlock((8, 8), 8, cond_norm), ([x, x2], labels, (16, 16))),
+        (nb.RefineBlock((8, 8), 8), ([x, x2], (16, 16))),
+        (norms.InstanceNorm2dPlus(8), (x,)),
+        (norms.VarianceNorm2d(8), (x,)),
+        (norms.ConditionalVarianceNorm2d(8, 10), (x, labels)),
+        (codec.MaskedConv2d(8, 8, 5, "B"), (x,)),
+        (codec.ResidualBlockWithStride(8, 16), (x,)),
+        (codec.ResidualBlockUpsample(8, 16), (x,)),
+        (codec.ResidualBlock(8, 16), (x,)),
+    ]
+
+    def to_card(args):
+        return [to_card(a) if isinstance(a, list) else
+                (a.cuda() if torch.is_tensor(a) else a) for a in args]
+
+    for module, args in cases:
+        module = _random_weights_(module.eval(), scale=0.2)
+        with torch.no_grad():
+            want = module(*args)
+            got = module.cuda()(*to_card(args)).cpu()
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item(), module
+    y, bias = rand(2, 4, 4, 8), rand(8)
+    torch.testing.assert_close(fused_leaky_relu(y.cuda(), bias.cuda()).cpu(),
+                               fused_leaky_relu(y, bias), atol=1e-6, rtol=0)

@@ -17,6 +17,7 @@ from tvc_torch.metrics.fvd import FVDMetric
 from tvc_torch.metrics.lpips import LPIPSMetric
 from tvc_torch.models.codec.elic import make_elic
 from tvc_torch.models.diffusion.ncsnpp import UNetMoreDDPM
+from tvc_torch.models.registry import create_model
 from tvc_torch.models.inception import FIDInceptionFeatures
 from tvc_torch.parallel.train import make_train_step
 from tvc_torch.pipeline.predictor import FramePredictor
@@ -56,6 +57,23 @@ def test_throughput_modules_import_alone_without_jax(module):
     assert out == "[]", out
 
 
+@pytest.mark.parametrize("module", [
+    "tvc_torch.models.diffusion.spade", "tvc_torch.models.diffusion.layers3d",
+    "tvc_torch.models.diffusion.ncsnpp3d", "tvc_torch.models.diffusion.unet_legacy",
+    "tvc_torch.models.diffusion.normalization", "tvc_torch.models.diffusion.ncsnv2_blocks",
+    "tvc_torch.models.registry", "tvc_torch.models.codec.layers", "tvc_torch.ops.fused_act",
+    "tvc_torch.ops.resample"])
+def test_model_zoo_modules_import_alone_without_jax(module):
+    """Each module of the model zoo, imported in a fresh process."""
+    probe = (f"import importlib, sys; importlib.import_module({module!r}); "
+             "print(sorted(m for m in sys.modules "
+             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tvc')))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env, check=True,
+                         capture_output=True, text=True, timeout=120).stdout.strip()
+    assert out == "[]", out
+
+
 @pytest.mark.parametrize("path", ["chip_smoke.py", "tvc_torch"])
 def test_sources_name_no_jax(path):
     """No import statement of the port or its chip script names jax, flax or tvc."""
@@ -83,7 +101,8 @@ def test_sources_name_no_jax(path):
 @pytest.mark.parametrize("entry", ["unet", "predictor", "lpips", "coder", "fvd", "fid_inception",
                                    "cli_codec", "cli_gop_send", "cli_gop_receive", "cli_sweep",
                                    "train_step", "train_loop", "cli_train", "fast_predictor",
-                                   "bench_pipeline", "bench_main"])
+                                   "bench_pipeline", "bench_main", "unet_spade", "unet_3d",
+                                   "unet_pseudo3d", "legacy_unet", "predictor_3d"])
 def test_default_device_raises_without_a_card(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a card; the default device is valid here")
@@ -111,6 +130,17 @@ def test_default_device_raises_without_a_card(entry, tmp_path):
             throughput.bench_pipeline(subsample=2)
         elif entry == "bench_main":
             throughput.main(["--quick", "--no-codec"])
+        elif entry in ("unet_spade", "unet_3d", "unet_pseudo3d", "legacy_unet",
+                       "predictor_3d"):
+            cfg = Config()
+            cfg.model.spade = entry == "unet_spade"
+            cfg.model.arch = {"unet_3d": "unetmore3d", "predictor_3d": "unetmore3d",
+                              "unet_pseudo3d": "unetmorepseudo3d",
+                              "legacy_unet": "unet"}.get(entry, "unetmore")
+            if entry == "predictor_3d":
+                FramePredictor.create(cfg)
+            else:
+                create_model(cfg)
         else:
             frames = tmp_path / "frames.npy"
             np.save(frames, np.zeros((2, 64, 64, 3), np.float32))

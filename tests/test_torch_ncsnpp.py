@@ -123,17 +123,6 @@ def test_full_width_parameter_shapes_match_jax():
     assert round(n_params / 1e6, 1) == 262.1
 
 
-@pytest.mark.parametrize("section,key,value", [
-    ("model", "spade", True), ("model", "arch", "unetmore3d"),
-    ("model", "arch", "unetmorepseudo3d"), ("model", "embedding_type", "fourier"),
-    ("model", "noise_in_cond", True)])
-def test_unported_branches_raise(section, key, value):
-    cfg = Config()
-    setattr(getattr(cfg, section), key, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNetMoreDDPM(cfg, device="meta")
-
-
 @pytest.mark.parametrize("sigma_dist", ["linear", "cosine", "geometric"])
 def test_make_schedule_matches_jax(sigma_dist):
     jcfg, cfg = JConfig(), Config()

@@ -224,6 +224,12 @@ def apply_overrides(cfg: Config, overrides: Sequence[str]) -> Config:
             val = tuple(val)
         if isinstance(getattr(target, name), float) and isinstance(val, int):
             val = float(val)
+        if isinstance(getattr(target, name), bool) and not isinstance(val, bool):
+            # "true"/"false" as written on a command line; the JAX package
+            # keeps the string, and its "false" is truthy
+            if str(raw).lower() not in ("true", "false", "1", "0"):
+                raise ValueError(f"{key} takes true or false, got {raw!r}")
+            val = str(raw).lower() in ("true", "1")
         setattr(target, name, val)
     return cfg
 

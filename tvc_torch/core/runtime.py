@@ -42,8 +42,9 @@ def numerics() -> Dict[str, bool]:
     }
 
 
-# the sampler settings that change a prediction's frames
-SAMPLER_FIELDS = ("model.version", "model.gamma", "sampling.init_prev_t", "sampling.subsample",
+# the UNet's architecture and the sampler settings that change a prediction's frames
+SAMPLER_FIELDS = ("model.arch", "model.spade", "model.version", "model.gamma",
+                  "sampling.init_prev_t", "sampling.subsample",
                   "sampling.denoise", "sampling.clip_before")
 
 
@@ -51,13 +52,16 @@ def numerics_stamp(device, cfg, compute_dtype=torch.float32) -> Dict[str, str]:
     """What decides a run's bits, as strings: the versions of torch, CUDA and
     cuDNN, the card, the backend flags, the codec's entropy backend, the
     attention kernel's build key, the sampler's settings of ``cfg``, the
-    predictor's ``compute_dtype``, its ``sampling.precision_schedule`` and
-    ``TVC_GN_BF16_IO`` (the JAX package stamps ``env_gn_bf16_io``);
+    predictor's ``compute_dtype``, its ``sampling.precision_schedule``,
+    ``TVC_GN_BF16_IO`` (the JAX package stamps ``env_gn_bf16_io``) and the
+    resampling variables ``TVC_POLYPHASE`` and ``TVC_FUSED_FIR``; the UNet's
+    architecture (``model.arch``, ``model.spade``);
     where the host computes something the receiver must repeat, its CPU's
     vector capability, and on a CPU device its thread count. A GOP payload
     carries it, and a receiver whose own stamp differs refuses the payload."""
     from tvc_torch.models.diffusion.layers import gn_bf16_io
     from tvc_torch.ops import _build
+    from tvc_torch.ops.resample import resample_env
 
     dev = resolve_device(device)
     entropy_backend = cfg.codec.entropy_backend
@@ -74,6 +78,7 @@ def numerics_stamp(device, cfg, compute_dtype=torch.float32) -> Dict[str, str]:
     stamp["compute_dtype"] = str(compute_dtype).replace("torch.", "")
     stamp["sampling.precision_schedule"] = cfg.sampling.precision_schedule
     stamp["env_gn_bf16_io"] = str(int(gn_bf16_io()))
+    stamp.update(resample_env())
     for field in SAMPLER_FIELDS:
         section, key = field.split(".")
         value = getattr(getattr(cfg, section), key)

@@ -125,20 +125,104 @@ def lecun_init_(module: nn.Module, generator: Optional[torch.Generator] = None) 
     return module
 
 
-def _not_ported(name: str):
-    class NotPorted(nn.Module):
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(
-                f"{name} is a library-only layer of tvc/models/codec/layers.py that the ELIC "
-                "codec does not use; it is not ported yet (ROADMAP.md)")
+class MaskedConv2d(nn.Conv2d):
+    """PixelCNN mask-A / mask-B conv (compressai's ``MaskedConv2d``); the
+    parameter is the raw weight, masked at every call. The mask is a constant
+    made in the forward, not a buffer, so a module moved with ``to_empty``
+    holds nothing uninitialized."""
 
-    NotPorted.__name__ = NotPorted.__qualname__ = name
-    return NotPorted
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5, mask_type: str = "A",
+                 device=None):
+        super().__init__(in_ch, out_ch, kernel_size, padding=kernel_size // 2, device=device)
+        if mask_type not in ("A", "B"):
+            raise ValueError(f"mask_type must be A or B, got {mask_type!r}")
+        k = kernel_size
+        self.mask_np = np.ones((k, k), np.float32)
+        self.mask_np[k // 2, k // 2 + (mask_type == "B"):] = 0
+        self.mask_np[k // 2 + 1:, :] = 0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mask = torch.from_numpy(self.mask_np).to(self.weight.device, self.weight.dtype)
+        return F.conv2d(x, self.weight * mask, self.bias, padding=self.padding)
 
 
-GDN = _not_ported("GDN")
-SubpelConv3x3 = _not_ported("SubpelConv3x3")
-MaskedConv2d = _not_ported("MaskedConv2d")
-ResidualBlockWithStride = _not_ported("ResidualBlockWithStride")
-ResidualBlockUpsample = _not_ported("ResidualBlockUpsample")
-ResidualBlock = _not_ported("ResidualBlock")
+class SubpelConv3x3(nn.Sequential):
+    """3x3 conv to ``out_ch * r^2`` channels, then a pixel shuffle by ``r``
+    (compressai's ``subpel_conv3x3``: ``0.weight``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, r: int = 1, device=None):
+        super().__init__(nn.Conv2d(in_ch, out_ch * r ** 2, 3, padding=1, device=device),
+                         nn.PixelShuffle(r))
+
+
+class GDN(nn.Module):
+    """Generalized divisive normalization: y = x / sqrt(beta + gamma-weighted
+    x^2) (times, if ``inverse``), in float32. ``beta`` and ``gamma`` are
+    stored through compressai's non-negative reparametrization (offset
+    2^-18), so converted weights load as they are. The contraction follows
+    the JAX package: ``norm_i = beta_i + sum_j gamma[j, i] x_j^2``."""
+
+    def __init__(self, ch: int, inverse: bool = False, beta_min: float = 1e-6,
+                 gamma_init: float = 0.1, device=None):
+        super().__init__()
+        self.inverse = inverse
+        self.offset = 2 ** -18
+        self.beta_bound = (beta_min + self.offset ** 2) ** 0.5
+        self.gamma_bound = self.offset
+        self.beta = nn.Parameter(torch.sqrt(torch.ones(ch, device=device) + self.offset ** 2))
+        self.gamma = nn.Parameter(torch.sqrt(gamma_init * torch.eye(ch, device=device)
+                                             + self.offset ** 2))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        off2 = self.offset ** 2
+        beta = torch.clamp_min(self.beta, self.beta_bound) ** 2 - off2
+        gamma = torch.clamp_min(self.gamma, self.gamma_bound) ** 2 - off2
+        norm = torch.einsum("bjhw,ji->bihw", x.float() ** 2, gamma) + beta[:, None, None]
+        norm = torch.sqrt(norm)
+        return (x * norm if self.inverse else x / norm).to(x.dtype)
+
+
+class ResidualBlockWithStride(nn.Module):
+    """conv3x3 (stride) -> leaky ReLU -> conv3x3 -> GDN, plus a strided 1x1 skip."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 2, device=None):
+        super().__init__()
+        self.conv1 = Conv3x3(in_ch, out_ch, stride=stride, device=device)
+        self.conv2 = Conv3x3(out_ch, out_ch, device=device)
+        self.gdn = GDN(out_ch, device=device)
+        self.skip = (Conv1x1(in_ch, out_ch, stride=stride, device=device)
+                     if stride != 1 or in_ch != out_ch else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.gdn(self.conv2(F.leaky_relu(self.conv1(x), 0.01)))
+        return h + (x if self.skip is None else self.skip(x))
+
+
+class ResidualBlockUpsample(nn.Module):
+    """Sub-pixel upsample -> leaky ReLU -> conv3x3 -> inverse GDN, plus a
+    sub-pixel skip."""
+
+    def __init__(self, in_ch: int, out_ch: int, upsample: int = 2, device=None):
+        super().__init__()
+        self.subpel_conv = SubpelConv3x3(in_ch, out_ch, upsample, device=device)
+        self.conv = Conv3x3(out_ch, out_ch, device=device)
+        self.igdn = GDN(out_ch, inverse=True, device=device)
+        self.upsample = SubpelConv3x3(in_ch, out_ch, upsample, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.igdn(self.conv(F.leaky_relu(self.subpel_conv(x), 0.01)))
+        return h + self.upsample(x)
+
+
+class ResidualBlock(nn.Module):
+    """Two conv3x3 with leaky ReLUs, plus the input (a 1x1 skip where the width changes)."""
+
+    def __init__(self, in_ch: int, out_ch: int, device=None):
+        super().__init__()
+        self.conv1 = Conv3x3(in_ch, out_ch, device=device)
+        self.conv2 = Conv3x3(out_ch, out_ch, device=device)
+        self.skip = Conv1x1(in_ch, out_ch, device=device) if in_ch != out_ch else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.leaky_relu(self.conv2(F.leaky_relu(self.conv1(x), 0.01)), 0.01)
+        return h + (x if self.skip is None else self.skip(x))

@@ -34,7 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from tvc_torch.ops.attention import attention
-from tvc_torch.ops.resample import NCHW, downsample_2d, upsample_2d
+from tvc_torch.ops.resample import (NCHW, conv_downsample_2d, downsample_2d, upsample_2d,
+                                    upsample_conv_2d)
 
 _SQRT2 = math.sqrt(2.0)
 
@@ -71,9 +72,9 @@ def redraw_zero_scaled_(module: nn.Module, generator: torch.Generator) -> nn.Mod
     through the attention and the output."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (NIN, DDPMConv)) and m.init_scale == 0.0:
-                w = m.W if isinstance(m, NIN) else m.weight
-                w.copy_(default_init_(torch.empty(w.shape), 1.0, generator))
+            if getattr(m, "init_scale", None) == 0.0 and hasattr(m, "scaled_weights"):
+                for w in m.scaled_weights():
+                    w.copy_(default_init_(torch.empty(w.shape), 1.0, generator))
     return module
 
 
@@ -106,6 +107,36 @@ def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
     if embedding_dim % 2 == 1:
         emb = F.pad(emb, (0, 1))
     return emb
+
+
+class GaussianFourierProjection(nn.Module):
+    """Gaussian Fourier features of continuous noise levels: sin and cos of
+    ``x W 2 pi``. ``W`` is a frozen random projection (no gradient), held as a
+    parameter so that a checkpoint carries it."""
+
+    def __init__(self, embedding_size: int = 256, scale: float = 1.0, device=None):
+        super().__init__()
+        self.scale = scale
+        self.W = nn.Parameter(torch.empty(embedding_size, device=device), requires_grad=False)
+        self.init_weights()
+
+    def init_weights(self, generator=None):
+        with torch.no_grad():
+            self.W.normal_(generator=generator).mul_(self.scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x_proj = x[:, None] * self.W[None, :] * 2 * math.pi
+        return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], dim=-1)
+
+
+class Embed(nn.Embedding):
+    """An embedding table with flax's ``nn.Embed`` init: truncated normal of
+    variance 1 / dim."""
+
+    def init_weights(self, generator=None):
+        std = math.sqrt(1.0 / self.embedding_dim) / 0.87962566103423978
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
 class Dense(nn.Linear):
@@ -144,6 +175,9 @@ class DDPMConv(nn.Conv2d):
             with torch.no_grad():
                 self.bias.zero_()
 
+    def scaled_weights(self):
+        return [self.weight]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
@@ -166,6 +200,9 @@ class NIN(nn.Module):
         default_init_(self.W, self.init_scale, generator)
         with torch.no_grad():
             self.b.zero_()
+
+    def scaled_weights(self):
+        return [self.W]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -300,3 +337,94 @@ class ResnetBlockBigGAN(nn.Module):
         if not self.skip_rescale:
             return x + h
         return (x + h) / _SQRT2
+
+
+class ResnetBlockDDPM(nn.Module):
+    """DDPM-style residual block: GroupNorm (eps 1e-6) -> SiLU -> conv, plus
+    the projected time embedding, GroupNorm -> SiLU -> conv; a 3x3 conv
+    (``conv_shortcut``) or a NIN on the skip where the width changes."""
+
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None, temb_dim: Optional[int] = None,
+                 conv_shortcut: bool = False, skip_rescale: bool = True, init_scale: float = 0.0,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        out_ch = out_ch or in_ch
+        self.skip_rescale = skip_rescale
+        self.GroupNorm_0 = GroupNormRef(in_ch, eps=1e-6, dtype=dtype, device=device)
+        self.Conv_0 = DDPMConv(in_ch, out_ch, 3, dtype=dtype, device=device)
+        if temb_dim is not None:
+            self.Dense_0 = Dense(temb_dim, out_ch, dtype=dtype, device=device)
+        self.GroupNorm_1 = GroupNormRef(out_ch, eps=1e-6, dtype=dtype, device=device)
+        self.Conv_1 = DDPMConv(out_ch, out_ch, 3, init_scale=init_scale, dtype=dtype,
+                               device=device)
+        if in_ch != out_ch:
+            if conv_shortcut:
+                self.Conv_2 = DDPMConv(in_ch, out_ch, 3, dtype=dtype, device=device)
+            else:
+                self.NIN_0 = NIN(in_ch, out_ch, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.Conv_0(F.silu(self.GroupNorm_0(x)))
+        if hasattr(self, "Dense_0") and temb is not None:
+            h = h + self.Dense_0(F.silu(temb))[:, :, None, None]
+        h = self.Conv_1(F.silu(self.GroupNorm_1(h)))
+        if hasattr(self, "Conv_2"):
+            x = self.Conv_2(x)
+        elif hasattr(self, "NIN_0"):  # over the channel axis
+            x = self.NIN_0(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        if not self.skip_rescale:
+            return x + h
+        return (x + h) / _SQRT2
+
+
+class FIRConv(nn.Module):
+    """The 3x3 weight (O, I, 3, 3) and bias of a resampling conv, with the
+    DDPM ``default_init``; ``FIRUpsample``/``FIRDownsample`` apply it."""
+
+    def __init__(self, in_ch: int, out_ch: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, 3, 3, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_ch, device=device))
+        self.dtype = dtype
+        self.init_weights()
+
+    def init_weights(self, generator=None):
+        default_init_(self.weight, 1.0, generator)
+        with torch.no_grad():
+            self.bias.zero_()
+
+
+class _FIRResample(nn.Module):
+    """2x FIR resampling of NCHW tensors; with ``with_conv`` a 3x3 conv fused
+    with it (``Conv2d_0``) and a bias."""
+
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None, with_conv: bool = False,
+                 fir_kernel: Sequence[int] = (1, 3, 3, 1), dtype=torch.float32, device=None):
+        super().__init__()
+        self.fir_kernel = tuple(fir_kernel)
+        self.dtype = dtype
+        if with_conv:
+            self.Conv2d_0 = FIRConv(in_ch, out_ch or in_ch, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not hasattr(self, "Conv2d_0"):
+            return self.resample(x, self.fir_kernel, factor=2, spatial_axes=NCHW)
+        dt, conv = self.dtype, self.Conv2d_0
+        y = self.resample_conv(x.to(dt), conv.weight.to(dt), k=self.fir_kernel)
+        return y + conv.bias.to(dt)[:, None, None]
+
+
+class FIRUpsample(_FIRResample):
+    """2x FIR upsample; the conv is a transposed conv fused with the FIR
+    (``upsample_conv_2d``)."""
+
+    resample = staticmethod(upsample_2d)
+    resample_conv = staticmethod(upsample_conv_2d)
+
+
+class FIRDownsample(_FIRResample):
+    """2x FIR downsample; the conv is the FIR then a stride-2 conv
+    (``conv_downsample_2d``)."""
+
+    resample = staticmethod(downsample_2d)
+    resample_conv = staticmethod(conv_downsample_2d)

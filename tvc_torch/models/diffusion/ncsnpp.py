@@ -6,6 +6,12 @@ state dict (``checkpoint_*.pt``) loads with no converter. The public forward
 takes and returns NHWC tensors, as the JAX package does; inside, activations
 are NCHW, the layout cuDNN's convolutions want.
 
+``UNetMoreDDPM`` builds the network ``cfg`` names, as the JAX package's
+does: this 2-D NCSN++ (with the positional or Fourier time embedding and the
+optional cond-mask embedding), the SPADE NCSN++ (``model.spade``,
+``spade.py``), or the 3-D and pseudo-3-D NCSN++ (``model.arch =
+unetmore3d | unetmorepseudo3d``, ``ncsnpp3d.py``).
+
 ``dtype`` is the compute dtype (float32 or bfloat16), as the JAX package's
 ``UNetMoreDDPM(dtype=...)``: the input frames are cast to it after the
 conditioning frames are joined, the time embedding is computed in float32
@@ -30,6 +36,8 @@ from tvc_torch.models.diffusion.layers import (
     AttnBlockpp,
     DDPMConv,
     Dense,
+    Embed,
+    GaussianFourierProjection,
     GetActNorm,
     ResnetBlockBigGAN,
     get_timestep_embedding,
@@ -87,13 +95,15 @@ def _build_plan(spec: NCSNppSpec) -> List[dict]:
     num_resolutions = len(spec.ch_mult)
     all_res = [spec.image_size // (2 ** i) for i in range(num_resolutions)]
 
-    if spec.embedding_type != "positional" or spec.cond_emb:
-        raise NotImplementedError(
-            "the Fourier time embedding and the cond-mask embedding (cond_emb) are not "
-            "ported yet (ROADMAP.md, queue A, capability surface)")
+    if spec.embedding_type == "fourier":
+        # all_modules[0] when present; scale 16
+        plan.append({"kind": "fourier", "size": nf, "scale": 16.0})
     if spec.time_conditional:
-        plan.append({"kind": "dense", "in": nf, "out": nf * 4})
+        emb_in = 2 * nf if spec.embedding_type == "fourier" else nf
+        plan.append({"kind": "dense", "in": emb_in, "out": nf * 4})
         plan.append({"kind": "dense", "in": nf * 4, "out": nf * 4})
+        if spec.cond_emb:
+            plan.append({"kind": "embed", "num": 2, "dim": nf // 2})
 
     plan.append({"kind": "conv3", "in": spec.channels * spec.n_frames, "out": nf})
     hs_c = [nf]
@@ -141,17 +151,23 @@ class NCSNpp(nn.Module):
         self.spec = spec
         self.dtype = dtype
         self.plan = _build_plan(spec)
-        temb_dim = 4 * spec.ngf if spec.time_conditional else None
+        # the cond-mask embedding is joined to the time embedding
+        emb_dim = (4 * spec.ngf + (spec.ngf // 2 if spec.cond_emb else 0)
+                   if spec.time_conditional else None)
         mods = []
         for p in self.plan:
             kind = p["kind"]
             if kind == "dense":
                 mods.append(Dense(p["in"], p["out"], dtype=dtype, device=device))
+            elif kind == "fourier":
+                mods.append(GaussianFourierProjection(p["size"], p["scale"], device=device))
+            elif kind == "embed":
+                mods.append(Embed(p["num"], p["dim"], device=device))
             elif kind == "conv3":
                 mods.append(DDPMConv(p["in"], p["out"], 3, init_scale=p.get("init_scale", 1.0),
                                      dtype=dtype, device=device))
             elif kind == "res":
-                mods.append(ResnetBlockBigGAN(p["in"], p["out"], temb_dim, up=p.get("up", False),
+                mods.append(ResnetBlockBigGAN(p["in"], p["out"], emb_dim, up=p.get("up", False),
                                               down=p.get("down", False),
                                               skip_rescale=spec.skip_rescale, dtype=dtype,
                                               device=device))
@@ -166,9 +182,12 @@ class NCSNpp(nn.Module):
         self.all_modules = nn.ModuleList(mods)
 
     def forward(self, x: torch.Tensor, time_cond: torch.Tensor,
-                cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+                cond: Optional[torch.Tensor] = None,
+                cond_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: (B, H, W, C*num_frames) noisy frames; cond: (B, H, W, C*num_frames_cond);
-        time_cond: (B,) integer step labels. Returns (B, H, W, C*num_frames)."""
+        time_cond: (B,) integer step labels (continuous noise levels with the
+        Fourier embedding); cond_mask: (B,) 0/1 labels of the cond-mask
+        embedding (ones by default). Returns (B, H, W, C*num_frames)."""
         spec = self.spec
         mods = self.all_modules
         m_idx = 0
@@ -178,11 +197,22 @@ class NCSNpp(nn.Module):
             x = torch.cat([x, cond], dim=-1)
         x = x.to(self.dtype).permute(0, 3, 1, 2)
 
-        temb = None
+        if spec.embedding_type == "fourier":
+            temb = mods[0](torch.log(time_cond.float())).to(self.dtype)
+            m_idx = 1
+        else:
+            temb = get_timestep_embedding(time_cond, spec.ngf).to(self.dtype)
         if spec.time_conditional:
-            temb = mods[0](get_timestep_embedding(time_cond, spec.ngf).to(self.dtype))
-            temb = mods[1](F.silu(temb))
-            m_idx = 2
+            temb = mods[m_idx](temb)
+            temb = mods[m_idx + 1](F.silu(temb))
+            m_idx += 2
+            if spec.cond_emb:
+                if cond_mask is None:
+                    cond_mask = torch.ones(x.shape[0], dtype=torch.long, device=x.device)
+                temb = torch.cat([temb, mods[m_idx](cond_mask.long()).to(self.dtype)], dim=1)
+                m_idx += 1
+        else:
+            temb = None
 
         hs = [mods[m_idx](x)]
         m_idx += 1
@@ -247,6 +277,27 @@ def make_schedule(cfg: Config) -> dict:
     return {"betas": betas, "alphas": alphas, "alphas_prev": alphas_prev}
 
 
+def cond_noise(cond: torch.Tensor, noise) -> torch.Tensor:
+    """The draw that ``noise_in_cond`` adds to the conditioning frames:
+    ``noise`` itself, or drawn from it in ``cond``'s dtype where it is a
+    ``torch.Generator``."""
+    if noise is None:
+        raise ValueError(
+            "model.noise_in_cond perturbs the conditioning frames with noise the caller "
+            "draws: pass noise= (a tensor of cond's shape or a torch.Generator); the JAX "
+            "package's UNet fails the same way without a 'noise' rng, which its "
+            "FramePredictor does not pass")
+    if isinstance(noise, torch.Generator):
+        return torch.randn(cond.shape, generator=noise, dtype=cond.dtype, device=cond.device)
+    return noise.to(device=cond.device, dtype=cond.dtype)
+
+
+def level(table: np.ndarray, y: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    """``table[y]`` (a float32 schedule on the host), shaped to broadcast over ``cond``."""
+    used = torch.from_numpy(table).to(cond.device)[y.long()]
+    return used.reshape((cond.shape[0],) + (1,) * (cond.dim() - 1))
+
+
 class UNetMoreDDPM(nn.Module):
     """The UNet wrapper (ncsnpp_more.py:721-770); its state dict holds the
     reference's keys, ``unet.all_modules.{i}.*``. The sampler, not the model,
@@ -254,27 +305,35 @@ class UNetMoreDDPM(nn.Module):
 
     ``device`` is resolved like every entry point of the port: ``"cuda"`` by
     default, which raises on a host without a card; ``"meta"`` builds the
-    parameter shapes only. ``dtype`` is the compute dtype."""
+    parameter shapes only. ``dtype`` is the compute dtype.
+
+    ``model.noise_in_cond`` perturbs the conditioning frames with the forward
+    process's noise at the step's level; the draw is the caller's, as
+    ``noise``: a tensor of ``cond``'s shape, or a ``torch.Generator`` to draw
+    it from. Without it the call raises, as the JAX package's does without a
+    ``noise`` rng (its predictor passes none)."""
 
     def __init__(self, cfg: Config, device="cuda", dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
-        if cfg.model.spade:
-            raise NotImplementedError(
-                "model.spade: the SPADE NCSN++ is not ported yet (ROADMAP.md, queue A, "
-                "capability surface)")
-        if cfg.model.arch in ("unetmore3d", "unetmorepseudo3d"):
-            raise NotImplementedError(
-                f"model.arch={cfg.model.arch!r}: the 3-D NCSN++ is not ported yet (ROADMAP.md, "
-                "queue A, capability surface)")
-        if cfg.model.noise_in_cond:
-            raise NotImplementedError(
-                "model.noise_in_cond is not ported yet (ROADMAP.md, queue A, capability surface)")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"the UNet computes in float32 or bfloat16, not {dtype}")
         self.cfg = cfg
         self.dtype = dtype
-        self.unet = NCSNpp(NCSNppSpec.from_config(cfg), dtype=dtype, device=dev)
+        if cfg.model.spade:
+            from tvc_torch.models.diffusion.spade import SPADENCSNpp
+
+            self.unet = SPADENCSNpp(cfg, dtype=dtype, device=dev)
+        elif cfg.model.arch in ("unetmore3d", "unetmorepseudo3d"):
+            from tvc_torch.models.diffusion.ncsnpp3d import NCSNpp3D
+
+            self.unet = NCSNpp3D(cfg, pseudo3d=cfg.model.arch == "unetmorepseudo3d",
+                                 dtype=dtype, device=dev)
+        else:
+            self.unet = NCSNpp(NCSNppSpec.from_config(cfg), dtype=dtype, device=dev)
+        # the forward process's alphas for noise_in_cond, float32 as the JAX
+        # package holds them; a host array, not a buffer, so ``to_empty`` keeps it
+        self.alphas = make_schedule(cfg)["alphas"].astype(np.float32)
 
     def with_dtype(self, dtype, state: Optional[dict] = None) -> "UNetMoreDDPM":
         """A UNet computing in ``dtype`` whose parameters are this one's
@@ -285,6 +344,13 @@ class UNetMoreDDPM(nn.Module):
                              assign=True)
         return twin.train(self.training)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor,
-                cond: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.unet(x, y, cond)
+    def forward_noise_cond(self, y, cond, noise):
+        """``sqrt(a_y) cond + sqrt(1 - a_y) z``, ``z`` from ``cond_noise``."""
+        used = level(self.alphas, y, cond)
+        return torch.sqrt(used) * cond + torch.sqrt(1.0 - used) * cond_noise(cond, noise)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor, cond: Optional[torch.Tensor] = None,
+                cond_mask: Optional[torch.Tensor] = None, noise=None) -> torch.Tensor:
+        if self.cfg.model.noise_in_cond and cond is not None:
+            cond = self.forward_noise_cond(y, cond, noise)
+        return self.unet(x, y, cond, cond_mask=cond_mask)

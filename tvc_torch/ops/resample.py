@@ -6,6 +6,10 @@ every ``down``-th sample. ``upsample_2d``/``downsample_2d`` with the NCSN++
 default separable 4-tap kernel take the polyphase shift-and-add form, the JAX
 package's default numerics (``TVC_POLYPHASE=1``, ``TVC_FUSED_FIR=0``): the
 same coefficients, applied in the same order, one spatial axis at a time.
+The two variables are read at each call, as the JAX package reads them at
+each trace: ``TVC_POLYPHASE=0`` takes the generic ``upfirdn2d`` convolution,
+``TVC_FUSED_FIR=1`` the one-pass 2-D polyphase form (``resample_env`` names
+the settings that change bytes; a GOP payload's stamp carries them).
 
 Layout: NHWC, as in the JAX package, by default. ``spatial_axes=(2, 3)`` runs
 the same ops on the NCHW tensors inside the port's UNet.
@@ -13,7 +17,8 @@ the same ops on the NCHW tensors inside the port's UNet.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import os
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,8 +65,29 @@ def upfirdn2d(x: torch.Tensor, k, up: int = 1, down: int = 1,
     return y.permute(0, 2, 3, 1)
 
 
+def polyphase_enabled() -> bool:
+    """``TVC_POLYPHASE`` (default on): the 4-tap shift-and-add form."""
+    return os.environ.get("TVC_POLYPHASE", "1") != "0"
+
+
+def fused_fir_enabled() -> bool:
+    """``TVC_FUSED_FIR=1`` (default off): both axes of the polyphase form in one pass."""
+    return os.environ.get("TVC_FUSED_FIR", "0") == "1"
+
+
+def resample_env() -> Dict[str, str]:
+    """The resampling settings as a numerics stamp records them: the fused
+    form changes bytes only where the polyphase form runs."""
+    poly = polyphase_enabled()
+    return {"env_polyphase": str(int(poly)),
+            "env_fused_fir": str(int(poly and fused_fir_enabled()))}
+
+
 def _separable_4tap(k: Sequence[float]) -> Optional[np.ndarray]:
-    """The normalized 1-D kernel if ``k`` is a separable 4-tap FIR."""
+    """The normalized 1-D kernel if ``k`` is a separable 4-tap FIR and the
+    polyphase form is on."""
+    if not polyphase_enabled():
+        return None
     ka = np.asarray(k, dtype=np.float64)
     if ka.ndim == 1 and ka.shape[0] == 4:
         return ka / np.sum(ka)
@@ -110,6 +136,55 @@ def _downsample2x_axis(x: torch.Tensor, k: list, axis: int) -> torch.Tensor:
     return k[3] * sl(0) + k[2] * sl(1) + k[1] * sl(2) + k[0] * sl(3)
 
 
+def _product(a: float, b: float, dtype: torch.dtype) -> float:
+    # a tap product as the JAX package forms it: in the activation's dtype
+    return (torch.tensor(a, dtype=dtype) * torch.tensor(b, dtype=dtype)).item()
+
+
+def _upsample2x_fused(x: torch.Tensor, k: list, axes: Tuple[int, int]) -> torch.Tensor:
+    """One-pass 2-D polyphase 2x upsample: phase (a, b) is the outer product of
+    the per-axis taps (even: k3 x[m-1] + k1 x[m]; odd: k2 x[m] + k0 x[m+1])."""
+    a0, a1 = axes
+    xp = _pad_axis(_pad_axis(x, a0), a1)
+    n0, n1 = x.shape[a0], x.shape[a1]
+
+    def sl(i, j):
+        return _slice_axis(_slice_axis(xp, a0, i, i + n0), a1, j, j + n1)
+
+    even, odd = ((k[3], 0), (k[1], 1)), ((k[2], 1), (k[0], 2))
+    rows = []
+    for ta in (even, odd):
+        row = []
+        for tb in (even, odd):
+            p = None
+            for ca, ia in ta:
+                for cb, ib in tb:
+                    t = _product(ca, cb, x.dtype) * sl(ia, ib)
+                    p = t if p is None else p + t
+            row.append(p)
+        rows.append(torch.stack(row, dim=a1 + 1))
+    shape = list(x.shape)
+    shape[a0], shape[a1] = 2 * n0, 2 * n1
+    return torch.stack(rows, dim=a0 + 1).reshape(shape)
+
+
+def _downsample2x_fused(x: torch.Tensor, k: list, axes: Tuple[int, int]) -> torch.Tensor:
+    """One-pass 2-D polyphase 2x downsample: the 4x4 separable window on
+    strided slices (out[m] = k3 x[2m-1] + k2 x[2m] + k1 x[2m+1] + k0 x[2m+2]
+    along each axis)."""
+    a0, a1 = axes
+    xp = _pad_axis(_pad_axis(x, a0), a1)
+    m0, m1 = x.shape[a0] // 2, x.shape[a1] // 2
+    taps = ((k[3], 0), (k[2], 1), (k[1], 2), (k[0], 3))
+    out = None
+    for ca, ia in taps:
+        for cb, ib in taps:
+            s = _slice_axis(_slice_axis(xp, a0, ia, ia + 2 * m0, 2), a1, ib, ib + 2 * m1, 2)
+            t = _product(ca, cb, x.dtype) * s
+            out = t if out is None else out + t
+    return out
+
+
 def _to_nchw(x, spatial_axes):
     return x.permute(0, 3, 1, 2) if tuple(spatial_axes) == NHWC else x
 
@@ -124,6 +199,8 @@ def upsample_2d(x: torch.Tensor, k: Sequence[float] = (1, 3, 3, 1), factor: int 
     k4 = _separable_4tap(k)
     if factor == 2 and k4 is not None:
         taps = _taps(k4 * np.sqrt(np.float64(gain * factor ** 2)), x.dtype)
+        if fused_fir_enabled():
+            return _upsample2x_fused(x, taps, spatial_axes)
         y = _upsample2x_axis(x, taps, spatial_axes[0])
         return _upsample2x_axis(y, taps, spatial_axes[1])
     kk = setup_kernel(k) * (gain * (factor ** 2))
@@ -139,9 +216,54 @@ def downsample_2d(x: torch.Tensor, k: Sequence[float] = (1, 3, 3, 1), factor: in
     k4 = _separable_4tap(k)
     if factor == 2 and k4 is not None:
         taps = _taps(k4 * np.sqrt(np.float64(gain)), x.dtype)
+        if fused_fir_enabled():
+            return _downsample2x_fused(x, taps, spatial_axes)
         y = _downsample2x_axis(x, taps, spatial_axes[0])
         return _downsample2x_axis(y, taps, spatial_axes[1])
     kk = setup_kernel(k) * gain
     p = kk.shape[0] - factor
     y = _upfirdn2d_nchw(_to_nchw(x, spatial_axes), kk, 1, factor, ((p + 1) // 2, p // 2))
     return _from_nchw(y, spatial_axes)
+
+
+def upsample_conv_2d(x: torch.Tensor, w: torch.Tensor, k: Sequence[float] = (1, 3, 3, 1),
+                     factor: int = 2, gain: float = 1.0) -> torch.Tensor:
+    """Transposed-conv upsample fused with the FIR, on NCHW tensors; ``w`` is
+    (O, I, kh, kw). The reference feeds a pre-flipped kernel to
+    ``conv_transpose2d``, so the net effect is a zero-stuffed correlation
+    with ``w``, then ``upfirdn2d`` (``tvc/ops/resample.py`` ``upsample_conv_2d``)."""
+    n, c, h, wd = x.shape
+    kh, kw = w.shape[2], w.shape[3]
+    if kh != kw:
+        raise ValueError(f"upsample_conv_2d needs a square kernel, got {kh}x{kw}")
+    kk = setup_kernel(k) * (gain * (factor ** 2))
+    p = (kk.shape[0] - factor) - (kw - 1)
+    z = x.new_zeros((n, c, (h - 1) * factor + 1, (wd - 1) * factor + 1))
+    z[:, :, ::factor, ::factor] = x
+    y = F.conv2d(z, w, padding=kh - 1)
+    return _upfirdn2d_nchw(y, kk, 1, 1, ((p + 1) // 2 + factor - 1, p // 2 + 1))
+
+
+def conv_downsample_2d(x: torch.Tensor, w: torch.Tensor, k: Sequence[float] = (1, 3, 3, 1),
+                       factor: int = 2, gain: float = 1.0) -> torch.Tensor:
+    """FIR, then a strided VALID conv with ``w`` (O, I, kh, kw), on NCHW tensors."""
+    kh, kw = w.shape[2], w.shape[3]
+    if kh != kw:
+        raise ValueError(f"conv_downsample_2d needs a square kernel, got {kh}x{kw}")
+    kk = setup_kernel(k) * gain
+    p = (kk.shape[0] - factor) + (kw - 1)
+    y = _upfirdn2d_nchw(x, kk, 1, 1, ((p + 1) // 2, p // 2))
+    return F.conv2d(y, w, stride=factor)
+
+
+def naive_upsample_2d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Nearest-neighbour upsample of an NHWC batch."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h, 1, w, 1, c).expand(n, h, factor, w, factor, c)
+    return x.reshape(n, h * factor, w * factor, c)
+
+
+def naive_downsample_2d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Mean-pool downsample of an NHWC batch."""
+    n, h, w, c = x.shape
+    return x.reshape(n, h // factor, factor, w // factor, factor, c).mean(dim=(2, 4))

@@ -134,7 +134,8 @@ class FramePredictor:
             model = UNetMoreDDPM(cfg, device="meta").to_empty(device=dev)
             zeros_like(model, 0.01)
         else:
-            model = UNetMoreDDPM(cfg, device="cpu")
+            # built without PyTorch's default init, which every draw below replaces
+            model = UNetMoreDDPM(cfg, device="meta").to_empty(device="cpu")
             init_params(model, torch.Generator().manual_seed(seed))
             model = model.to(dev)
         return cls(cfg, model, sampler_version=sampler_version, dtype=dtype,

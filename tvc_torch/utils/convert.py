@@ -17,7 +17,11 @@ a JAX ``ELICModel`` tree onto the reference's keys, and
 ``load_codec_checkpoint`` reads a reference ``*.pth.tar``. The evaluation
 networks name theirs after pytorch_i3d's and torchvision's keys:
 ``i3d_from_jax``, ``inception_from_jax``, ``vgg16_from_jax`` and
-``squeezenet_from_jax`` map the JAX trees onto them.
+``squeezenet_from_jax`` map the JAX trees onto them. The SPADE and 3-D
+NCSN++ keep the reference's names where the JAX package's differ: the SPADE
+net's conv is ``mlp_shared.0`` (``spade_state_dict_from_jax``), a 3-D conv
+keeps its ``conv`` and the pseudo-3-D convs are ``space_conv``/``time_conv``
+(``state_dict_3d_from_jax``).
 """
 
 from __future__ import annotations
@@ -69,10 +73,63 @@ def state_dict_from_jax(tree: Dict[str, Any], prefix: str = "") -> Dict[str, tor
 
 def unet_from_jax(cfg: Config, np_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """``{'params': {'unet': {'m{i}': ...}}}`` (the JAX ``UNetMoreDDPM``
-    variables) -> the port's ``UNetMoreDDPM`` state dict (``unet.all_modules.{i}.*``)."""
-    if cfg.model.spade or cfg.model.arch in ("unetmore3d", "unetmorepseudo3d"):
-        raise NotImplementedError("only the 2-D NCSN++ UNet is ported (3-D archs: ROADMAP.md A12)")
-    return state_dict_from_jax(np_params["params"]["unet"], "unet.")
+    variables) -> the port's ``UNetMoreDDPM`` state dict (``unet.all_modules.{i}.*``),
+    for the 2-D NCSN++, the SPADE NCSN++ and the 3-D and pseudo-3-D NCSN++."""
+    tree = np_params["params"]["unet"]
+    if cfg.model.spade:
+        return spade_state_dict_from_jax(tree, "unet.")
+    if cfg.model.arch in ("unetmore3d", "unetmorepseudo3d"):
+        return _unet3d_from_jax(cfg, tree)
+    return state_dict_from_jax(tree, "unet.")
+
+
+_MLP_SHARED = re.compile(r"(^|\.)mlp_shared\.")
+
+
+def spade_state_dict_from_jax(tree: Dict[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX SPADE module's (sub)tree -> port state-dict entries: the
+    reference's SPADE net is a Sequential, so ``mlp_shared``'s conv is
+    ``mlp_shared.0``."""
+    return {_MLP_SHARED.sub(r"\1mlp_shared.0.", k): v
+            for k, v in state_dict_from_jax(tree, prefix).items()}
+# the JAX pseudo-3-D conv's two convs -> the reference's names
+_RENAMED_3D = {"spatial": "space_conv", "temporal": "time_conv"}
+# a flax kernel (k..., in, out) of each rank -> PyTorch's (out, in, k...)
+_KERNEL_TO_TORCH = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 3: (2, 1, 0), 2: (1, 0)}
+
+
+def state_dict_3d_from_jax(tree: Dict[str, Any], prefix: str = "",
+                           converter: bool = False) -> Dict[str, torch.Tensor]:
+    """A JAX 3-D module's parameter (sub)tree -> port state-dict entries. The
+    3-D nets keep the ``conv`` of ``MyConv3d`` (``Conv_0.conv.weight``), name
+    the pseudo-3-D convs ``space_conv``/``time_conv``, and map kernels of rank
+    5 (kd, kh, kw, I, O), 4, 3 (kt, I, O) and 2 onto PyTorch's layouts; a
+    frame ``converter``'s (n_in, n_out) kernel becomes (n_out, n_in, 1, 1)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, v in tree.items():
+        if isinstance(v, dict):
+            key = prefix if name == "gn" else f"{prefix}{_RENAMED_3D.get(name, name)}."
+            out.update(state_dict_3d_from_jax(v, key, converter))
+            continue
+        t = _tensor(v)
+        if name == "kernel":
+            name = "weight"
+            t = t.permute(*_KERNEL_TO_TORCH[t.dim()])
+            if converter:
+                t = t[:, :, None, None]
+        out[prefix + _RENAMED.get(name, name)] = t
+    return out
+
+
+def _unet3d_from_jax(cfg: Config, tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    from tvc_torch.models.diffusion.ncsnpp3d import build_plan_3d
+
+    converters = {f"m{i}" for i, p in enumerate(build_plan_3d(cfg)) if p["kind"] == "converter"}
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in tree.items():
+        out.update(state_dict_3d_from_jax(sub, f"unet.all_modules.{name[1:]}.",
+                                          name in converters))
+    return out
 
 
 def lpips_from_jax(np_params: Dict[str, Any], net_type: str = "alex") -> Dict[str, torch.Tensor]:
