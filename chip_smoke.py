@@ -5,8 +5,10 @@ byte by a receiver in a fresh process; then the serving paths, the rate
 sweep, the evaluation path (FVD, LPIPS backbones, FID, the anchors), and
 the sampler layer (DDIM, F-PNDM, every DDPM option, the Langevin samplers)
 with every prediction replayed as a CUDA graph, the training path, the
-bf16 throughput path with its harness, and the rest of the model zoo (the
-SPADE, 3-D and pseudo-3-D NCSN++ at full width, the library families).
+bf16 throughput path with its harness, the rest of the model zoo (the
+SPADE, 3-D and pseudo-3-D NCSN++ at full width, the library families), and
+the rest of the port (zoo and bf16 training, the queued sweep over the
+launcher, sharded serving, ``validate``).
 
     python3 chip_smoke.py
 
@@ -154,7 +156,33 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
     layers. Phase 3 also holds the kernel against its plain version at the
     3-D nets' shapes (float32, b = 7 and 5 at the three levels).
 
-Every path above (7, 8, 10-18) must launch the attention kernel 1010 times per
+19. the rest of the port: (c, d) two ``python -m tvc_torch.parallel.launcher
+    sweep --queue-dir`` processes (``TVC_NUM_PROCESSES=2``, one gloo group)
+    sharing the card over a 2-video dataset of 7 frames at
+    ``sampling.subsample=10``, one unit carrying a dead owner's stale claim:
+    each unit run once, the stale one stolen, exactly one merger, the merged
+    ``points.json`` equal byte for byte to a plain ``sweep``'s on the same
+    units, run beside them; (f) ``python -m tvc_torch.cli validate`` on
+    phase 12's codec checkpoints and a full-width diffusion checkpoint in the
+    reference's list layout, beside them: the statuses (diffusion and codec
+    pass, the rest skip) and the full-width bf16 endpoint drift; (e)
+    ``FusedGOPSender.run_sharded`` on 2 chains of 7 frames and
+    ``dryrun_serving`` under a world-size-1 NCCL group, beside them:
+    ``run_sharded`` equal to ``run_batched`` byte for byte; then alone (a)
+    SPADE, 3-D and pseudo-3-D training at full width in float32 on weights
+    drawn on the card, at B = 1 (``--zoo-train-largest``: the largest of
+    B = 8, 4, 2, 1 that fits), the first step's s, the s per step after it,
+    peak memory, and the attention blocks' gradients through the kernel
+    against the plain attention's; a B = 1 SPADE call after training equal
+    to a fresh process's byte for byte; (b) the 2-D net's bf16 step at B = 8
+    on float32 masters: its loss against the float32 forward's from the same
+    state and draws, the attention blocks' gradients in bf16 against plain's,
+    its s per step beside phase 16b's float32 step; and the kernel's
+    forward and backward against autograd through the plain attention at
+    the 3-D nets' shapes (b = 7 and 5) and in bf16 at B = 8, with their
+    bounds.
+
+Every path above (7, 8, 10-19) must launch the attention kernel 1010 times per
 DDPM or DDIM update or lockstep sweep (F-PNDM 1090, the warm start 960, the
 3-D nets' 11-call updates 110), 10 per train step; the ``kernels`` line sums
 their launches.
@@ -164,6 +192,7 @@ The last lines are the ``kernels`` JSON, the card's name and power limit, and
 non-zero and prints no result; nothing runs on the CPU.
 
     python3 chip_smoke.py --sweep   # also time every attention plan at the B=1 levels
+    python3 chip_smoke.py --phase19-only [--zoo-train-largest]   # phases 1-3 and 19, no result
 """
 
 from __future__ import annotations
@@ -653,34 +682,43 @@ def phase_gop(torch, attn, sender, coder, video, config_mods):
     return {**row, **recv, "result": gop}
 
 
-def receive_in_fresh_process(gop, cfg, coder, config_mods):
-    """Write ``gop``'s payload as ``gop send`` does, run ``python -m
-    tvc_torch.cli gop receive`` on it in a fresh process with ``config_mods``
-    (the sender's config), and compare its frames with the sender's."""
+def start_receiver(gop, cfg, coder, config_mods, tag="receiver"):
+    """Write ``gop``'s payload as ``gop send`` does and start ``python -m
+    tvc_torch.cli gop receive`` on it in a fresh process with
+    ``config_mods`` (the sender's config)."""
     from tvc_torch import cli
     from tvc_torch.core.runtime import numerics_stamp
 
-    x_ge = gop.x_ge[0]
-    with tempfile.TemporaryDirectory() as tmp:
-        payload, out = os.path.join(tmp, "gop.tvcg"), os.path.join(tmp, "receiver.npy")
-        nbytes = cli.write_payload(payload, gop, cfg.seed, False,
-                                   numerics_stamp(coder.device, cfg))
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "tvc_torch.cli", "gop", "receive", "--payload", payload,
-             "--output-npy", out, "--device", coder.device.type, "--config-mod", *config_mods],
-            cwd=ROOT, capture_output=True, text=True, timeout=900)
-        recv_wall = time.perf_counter() - t0
-        for line in (proc.stdout + proc.stderr).strip().splitlines():
-            log("  receiver| " + line)
-        if proc.returncode != 0:
-            fail(f"the receiver process exited {proc.returncode}")
-        m = re.search(r"in ([0-9.]+) s \(models built in ([0-9.]+) s\)", proc.stdout)
-        rec = np.load(out)
-    return {"payload_bytes": nbytes, "receiver_wall_s": recv_wall,
-            "receiver_run_s": float(m.group(1)) if m else None,
-            "receiver_models_s": float(m.group(2)) if m else None,
-            "byte_identical": rec.dtype == x_ge.dtype and rec.tobytes() == x_ge.tobytes()}
+    tmp = tempfile.mkdtemp()
+    payload, out = os.path.join(tmp, "gop.tvcg"), os.path.join(tmp, "receiver.npy")
+    nbytes = cli.write_payload(payload, gop, cfg.seed, False, numerics_stamp(coder.device, cfg))
+    started = start_process(["-m", "tvc_torch.cli", "gop", "receive", "--payload", payload,
+                             "--output-npy", out, "--device", coder.device.type,
+                             "--config-mod", *config_mods], tag)
+    return {"started": started, "tmp": tmp, "out": out, "nbytes": nbytes, "x_ge": gop.x_ge[0]}
+
+
+def finish_receivers(handles):
+    """Wait for started receivers; for each, its walls and whether its frames
+    equal the sender's byte for byte."""
+    done = finish([h["started"] for h in handles])
+    rows = []
+    for h in handles:
+        text, wall = done[h["started"][0]]
+        m = re.search(r"in ([0-9.]+) s \(models built in ([0-9.]+) s\)", text)
+        rec = np.load(h["out"])
+        shutil.rmtree(h["tmp"])
+        rows.append({"payload_bytes": h["nbytes"], "receiver_wall_s": wall,
+                     "receiver_run_s": float(m.group(1)) if m else None,
+                     "receiver_models_s": float(m.group(2)) if m else None,
+                     "byte_identical": rec.dtype == h["x_ge"].dtype
+                     and rec.tobytes() == h["x_ge"].tobytes()})
+    return rows
+
+
+def receive_in_fresh_process(gop, cfg, coder, config_mods):
+    """One receiver, started and awaited."""
+    return finish_receivers([start_receiver(gop, cfg, coder, config_mods)])[0]
 
 
 SYNC_WARNING = "synchroniz"  # text of the CUDA sync debug mode's warnings
@@ -934,20 +972,52 @@ def write_sweep_inputs(torch, tmp, video):
     return ckpts, data, short
 
 
+def start_process(argv, tag, env=None):
+    """Start ``python *argv`` from the repository's root in a fresh process:
+    (tag, start time, process)."""
+    return (tag, time.perf_counter(),
+            subprocess.Popen([sys.executable, *argv], cwd=ROOT, text=True,
+                             env=dict(os.environ, **(env or {})), stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT))
+
+
+def finish(started, timeout=900):
+    """Wait for started processes, log their output, fail on a non-zero exit:
+    {tag: (output, wall seconds)}."""
+    out = {}
+    try:
+        for tag, t0, proc in started:
+            text = proc.communicate(timeout=timeout)[0]
+            out[tag] = (text, time.perf_counter() - t0, proc.returncode)
+    finally:
+        for _, _, proc in started:
+            if proc.poll() is None:
+                proc.kill()
+    for tag, (text, _, rc) in out.items():
+        for line in text.strip().splitlines():
+            log(f"  {tag}| " + line)
+        if rc != 0:
+            fail(f"the {tag} process exited {rc}")
+    return {tag: (text, wall) for tag, (text, wall, _) in out.items()}
+
+
+def sweep_processes(runs):
+    """``python -m tvc_torch.cli sweep *args`` for each (args, tag) of
+    ``runs``, in fresh processes on the card started together: (output, host
+    seconds, attention launches it reports) of each."""
+    done = finish([start_process(["-m", "tvc_torch.cli", "sweep", "--device", "cuda",
+                                  "--allow-uncalibrated", *args], tag) for args, tag in runs])
+    out = []
+    for _, tag in runs:
+        text, wall = done[tag]
+        ml = re.search(r"attention kernel launches: (\d+)", text)
+        out.append((text, wall, int(ml.group(1)) if ml else -1))
+    return out
+
+
 def sweep_process(args, tag):
-    """``python -m tvc_torch.cli sweep *args`` in a fresh process on the card:
-    (stdout, host seconds, attention launches it reports)."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "tvc_torch.cli", "sweep", "--device", "cuda",
-                           "--allow-uncalibrated", *args],
-                          cwd=ROOT, capture_output=True, text=True, timeout=900)
-    wall = time.perf_counter() - t0
-    for line in (proc.stdout + proc.stderr).strip().splitlines():
-        log(f"  {tag}| " + line)
-    if proc.returncode != 0:
-        fail(f"the {tag} process exited {proc.returncode}")
-    ml = re.search(r"attention kernel launches: (\d+)", proc.stdout)
-    return proc.stdout, wall, int(ml.group(1)) if ml else -1
+    """One ``sweep_processes`` run."""
+    return sweep_processes([(args, tag)])[0]
 
 
 def sweep_outputs(out):
@@ -967,12 +1037,13 @@ def phase_cli_sweep(tmp, ckpts, data, config_mods):
     import yaml
 
     runs = []
-    for i in range(2):
-        out = os.path.join(tmp, f"batched_{i}")
-        stdout, wall, launches = sweep_process(
-            ["--no-fvd", "--data-npy", data, "--output-path", out, "--batched", "4",
-             "--qualities", "0", "1", "--thresholds", *SWEEP_THRESHOLDS,
-             "--codec-ckpts", *ckpts, "--config-mod", *config_mods], f"sweep{i}")
+    outs = [os.path.join(tmp, f"batched_{i}") for i in range(2)]
+    # the two processes run together, for the script's time
+    results = sweep_processes([
+        (["--no-fvd", "--data-npy", data, "--output-path", out, "--batched", "4",
+          "--qualities", "0", "1", "--thresholds", *SWEEP_THRESHOLDS, "--codec-ckpts", *ckpts,
+          "--config-mod", *config_mods], f"sweep{i}") for i, out in enumerate(outs)])
+    for out, (stdout, wall, launches) in zip(outs, results):
         m = re.search(r"\[batched\] (\d+) sampler sweeps for (\d+) rate points \((\d+) retired",
                       stdout)
         files, blobs = sweep_outputs(out)
@@ -1242,21 +1313,15 @@ def phase_eval(torch, tmp, video, gop_frames, data, ckpts, i3d_ckpt, config_mods
         env["PATH"] = bindir + os.pathsep + env.get("PATH", "")
         log("ANCHORS: NO ffmpeg ON PATH -- the encoder is STUBBED by a lossy stand-in "
             "(quantise and deflate); no H.264/H.265 number below is real")
-    arrays, walls = {}, {}
-    for device in ("cuda", "cpu"):
-        arr_path = os.path.join(tmp, f"anchors_{device}.npy")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "tvc_torch.cli", "anchors", "--device", device,
-             "--data-npy", data, "--output", arr_path, "--codec", "libx264", "--qp-min", "30",
-             "--qp-max", "31", "--allow-uncalibrated", "--i3d-ckpt", i3d_ckpt],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-        walls[device] = time.perf_counter() - t0
-        for line in (proc.stdout + proc.stderr).strip().splitlines():
-            log(f"  anchors_{device}| " + line)
-        if proc.returncode != 0:
-            fail(f"the anchors process on {device} exited {proc.returncode}")
-        arrays[device] = np.load(arr_path)
+    # the card's and the CPU's processes run together, for the script's time
+    devices = ("cuda", "cpu")
+    done = finish([start_process(
+        ["-m", "tvc_torch.cli", "anchors", "--device", device, "--data-npy", data, "--output",
+         os.path.join(tmp, f"anchors_{device}.npy"), "--codec", "libx264", "--qp-min", "30",
+         "--qp-max", "31", "--allow-uncalibrated", "--i3d-ckpt", i3d_ckpt],
+        f"anchors_{device}", {"PATH": env["PATH"]}) for device in devices], timeout=600)
+    walls = {device: done[f"anchors_{device}"][1] for device in devices}
+    arrays = {device: np.load(os.path.join(tmp, f"anchors_{device}.npy")) for device in devices}
     arr, host = arrays["cuda"], arrays["cpu"]
     row["anchors"] = {"ffmpeg_stubbed": stubbed, "process_wall_s": walls["cuda"],
                       "cpu_process_wall_s": walls["cpu"],
@@ -1399,8 +1464,10 @@ def phase_samplers(torch, attn, predictor, coder, lpips, video):
     rows["graph_vs_eager"] = ab
     rows["b1_update"] = b1_update
 
-    # (c) DDIM and F-PNDM GOPs, received in fresh processes
+    # (c) DDIM and F-PNDM GOPs, each received in a fresh process; the two
+    # receivers run together after both sends, for the script's time
     cond1 = video[0, :2].transpose(1, 2, 0, 3).reshape(1, 128, 128, 6)
+    sent = []
     for version, per_update in (("DDIM", 101 * per_call), ("FPNDM", 109 * per_call)):
         pred_v, mods = sampler_predictor(predictor, **{"model.version": version})
         sender = Sender(GOP_THRESHOLD, pred_v.cfg, pred_v, lpips)
@@ -1414,15 +1481,6 @@ def phase_samplers(torch, attn, predictor, coder, lpips, video):
                                                   keep_streams=True))
         n = attn.launches
         launches[f"{version.lower()}_gop"] = n
-        recv = receive_in_fresh_process(gop, pred_v.cfg, coder,
-                                        ["codec.entropy_backend=device", *mods])
-        row = {"sender_wall_s": wall, "n_updates": gop.n_updates, "accepts": gop.accepts,
-               "update_s": gop.update_s, "attention_launches": n,
-               "launches_per_update": n / gop.n_updates, **recv}
-        log(f"{version.lower()}_gop " + json.dumps(row))
-        rows[version.lower()] = row
-        if not recv["byte_identical"]:
-            fail(f"the {version} receiver's frames differ from the sender's")
         if graph_at(pred_v, 1).replays - replays != gop.n_updates * pred_v.n_steps:
             fail(f"the {version} sender's UNet calls did not all replay its graph")
         if n != per_update * gop.n_updates or pred_v.n_steps * per_call != per_update:
@@ -1431,6 +1489,19 @@ def phase_samplers(torch, attn, predictor, coder, lpips, video):
         x = gop.x_ge[0]
         if not np.isfinite(x).all() or x.min() < 0 or x.max() > 1:
             fail(f"the {version} GOP's frames are not finite frames in [0, 1]")
+        sent.append((version, gop, {"sender_wall_s": wall, "n_updates": gop.n_updates,
+                                    "accepts": gop.accepts, "update_s": gop.update_s,
+                                    "attention_launches": n,
+                                    "launches_per_update": n / gop.n_updates},
+                     (pred_v.cfg, mods)))
+    handles = [start_receiver(gop, vcfg, coder, ["codec.entropy_backend=device", *mods],
+                              f"receiver {version}") for version, gop, _, (vcfg, mods) in sent]
+    for (version, gop, row, _), recv in zip(sent, finish_receivers(handles)):
+        row.update(recv)
+        log(f"{version.lower()}_gop " + json.dumps(row))
+        rows[version.lower()] = row
+        if not recv["byte_identical"]:
+            fail(f"the {version} receiver's frames differ from the sender's")
 
     # (d) gamma noise and the t_min warm start: an update and its rerun from the
     # same generator seed (the first call's first UNet call is eager, every
@@ -1561,43 +1632,66 @@ def train_state(torch, cfg, layers):
     return state, step_fn
 
 
+def attention_grad_rows(torch, attn, cases, dtype, tol, tag):
+    """The kernel's forward and backward (``KernelAttention``) against
+    autograd through ``attention_plain`` on float32 copies of the same inputs,
+    for each case (level, b, tokens, heads, launches per UNet call) in
+    ``dtype``, with the times of the kernel's forward, its backward, plain's
+    forward + backward and SDPA's (a yardstick the port never calls)."""
+    rows = []
+    for name, b, t, h, per_call in cases:
+        g = torch.Generator(device="cuda").manual_seed(11)
+        bases = [torch.randn((b, t, h * HEAD_DIM), generator=g, device="cuda").to(dtype)
+                 .requires_grad_() for _ in range(3)]
+        q, k, v = (head_view(x, b, h, t, HEAD_DIM) for x in bases)
+        dout = torch.randn((b, t, h, HEAD_DIM), generator=g, device="cuda").to(dtype)
+        dout = dout.transpose(1, 2)
+        out = attn.attention(q, k, v)
+        if out.grad_fn is None:
+            fail(f"attention {name} b={b}: the kernel's output has no grad_fn")
+        got = torch.autograd.grad(out, bases, dout)
+        bases32 = [x.detach().float().requires_grad_() for x in bases]
+        q32, k32, v32 = (head_view(x, b, h, t, HEAD_DIM) for x in bases32)
+        ref = attn.attention_plain(q32, k32, v32)
+        want = torch.autograd.grad(ref, bases32, dout.float())
+        row = {"level": name, "B": b, "dtype": str(dtype).split(".")[-1],
+               "out_err": (out.float() - ref).abs().max().item(),
+               "out_rel": (out.float() - ref).abs().max().item() / ref.abs().max().item()}
+        for key, a, w in zip(("dq", "dk", "dv"), got, want):
+            row[f"{key}_err"] = (a.float() - w).abs().max().item()
+            row[f"{key}_rel"] = row[f"{key}_err"] / w.abs().max().item()
+        out_ok = row["out_err"] <= F32_TOL if dtype == torch.float32 else row["out_rel"] <= tol
+        if not out_ok or not max(row[f"{k}_rel"] for k in ("dq", "dk", "dv")) <= tol:
+            fail(f"attention gradient {name} b={b} {dtype}: {row}")
+        with torch.no_grad():
+            row["fwd_ms"] = time_ms(torch, lambda: attn.attention(q, k, v), 20)
+            row["bwd_ms"] = time_ms(torch, lambda: attn.attention_backward(q, k, v, out,
+                                                                           dout), 20)
+        row["plain_fwd_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+            attn.attention_plain(q, k, v), bases, dout), 20)
+        row["sdpa_fwd_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+            torch.nn.functional.scaled_dot_product_attention(q, k, v), bases, dout), 20)
+        row["per_unet_call"] = per_call
+        # forward + backward: the forward's 2 products of T x T x d and the
+        # backward's 5 (q k^T again, P^T dO, dO V^T, dS K, dS^T Q); q, k, v
+        # and dO read once, o, dq, dk and dv written once
+        flops = 14.0 * b * h * t * t * HEAD_DIM
+        nbytes = 8.0 * b * h * t * HEAD_DIM * bases[0].element_size()
+        peak = F32_PEAK if dtype == torch.float32 else BF16_PEAK
+        row["bound_fwd_bwd_ms"] = max(flops / peak, nbytes / HBM_BPS) * 1e3
+        row["bound_by"] = "operations" if flops / peak >= nbytes / HBM_BPS else "bytes"
+        rows.append(row)
+        log(f"{tag} " + json.dumps(row))
+    return rows
+
+
 def phase_train_attention(torch, attn):
     """Phase 16a: the kernel's forward and backward against autograd through
     ``attention_plain``, at the three levels at B = 1 and 8."""
-    rows = []
-    for b in (1, TRAIN_BATCH):
-        for name, t, h, per_call in LEVELS:
-            g = torch.Generator(device="cuda").manual_seed(11)
-            bases = [torch.randn((b, t, h * HEAD_DIM), generator=g, device="cuda")
-                     .requires_grad_() for _ in range(3)]
-            q, k, v = (head_view(x, b, h, t, HEAD_DIM) for x in bases)
-            dout = torch.randn((b, t, h, HEAD_DIM), generator=g, device="cuda").transpose(1, 2)
-            out = attn.attention(q, k, v)
-            if out.grad_fn is None:
-                fail(f"attention {name} B={b}: the kernel's output has no grad_fn")
-            got = torch.autograd.grad(out, bases, dout)
-            ref = attn.attention_plain(q, k, v)
-            want = torch.autograd.grad(ref, bases, dout)
-            row = {"level": name, "B": b, "out_err": (out - ref).abs().max().item()}
-            for key, a, w in zip(("dq", "dk", "dv"), got, want):
-                row[f"{key}_err"] = (a - w).abs().max().item()
-                row[f"{key}_rel"] = row[f"{key}_err"] / w.abs().max().item()
-            if not row["out_err"] <= F32_TOL or not max(
-                    row[f"{k}_rel"] for k in ("dq", "dk", "dv")) <= ATTN_GRAD_TOL:
-                fail(f"attention gradient {name} B={b}: {row}")
-            with torch.no_grad():
-                row["fwd_ms"] = time_ms(torch, lambda: attn.attention(q, k, v), 20)
-                row["bwd_ms"] = time_ms(torch, lambda: attn.attention_backward(q, k, v, out,
-                                                                               dout), 20)
-            row["plain_fwd_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
-                attn.attention_plain(q, k, v), bases, dout), 20)
-            # the library's yardstick; the port never calls it
-            row["sdpa_fwd_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
-                torch.nn.functional.scaled_dot_product_attention(q, k, v), bases, dout), 20)
-            row["per_unet_call"] = per_call
-            rows.append(row)
-            log("train_attention " + json.dumps(row))
-    return rows
+    return attention_grad_rows(torch, attn, [(name, b, t, h, per_call)
+                                             for b in (1, TRAIN_BATCH)
+                                             for name, t, h, per_call in LEVELS],
+                               torch.float32, ATTN_GRAD_TOL, "train_attention")
 
 
 def phase_train_step(torch, attn, layers):
@@ -1967,11 +2061,13 @@ def phase_train(torch, attn, layers, tmp, video, card, predictor, b1_update):
     bwd = sum(r["bwd_ms"] * r["per_unet_call"] for r in b8)
     sdpa = sum(r["sdpa_fwd_bwd_ms"] * r["per_unet_call"] for r in b8)
     plain = sum(r["plain_fwd_bwd_ms"] * r["per_unet_call"] for r in b8)
+    bound = sum(r["bound_fwd_bwd_ms"] * r["per_unet_call"] for r in b8)
     step_s = min(rows["step"]["step_s"])
     rows["summary"] = {
         "card": card, "batch": TRAIN_BATCH, "step_s": step_s,
         "attention_fwd_ms_per_step": fwd, "attention_bwd_ms_per_step": bwd,
         "plain_fwd_bwd_ms_per_step": plain, "sdpa_fwd_bwd_ms_per_step": sdpa,
+        "bound_fwd_bwd_ms_per_step": bound,
         "attention_share_of_step": (fwd + bwd) / 1e3 / step_s,
         "attention_bwd_share_of_step": bwd / 1e3 / step_s,
         "peak_mem_gb_in_process": rows["step"]["peak_mem_gb"],
@@ -2351,15 +2447,12 @@ def phase_zoo_arch(torch, attn, layers, name, mods, millions, coder, lpips, vide
                                                   keep_streams=True))
         n = attn.launches
         launches[f"zoo_{name}_gop"] = n
-        recv = receive_in_fresh_process(gop, cfg, coder, ["codec.entropy_backend=device",
-                                                          *config_mods])
-        gop_row = {"sender_wall_s": wall, "n_updates": gop.n_updates, "accepts": gop.accepts,
-                   "update_s": gop.update_s, "bits": gop.bits, "attention_launches": n,
-                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **recv}
-        log(f"zoo_gop {name} " + json.dumps(gop_row))
-        row["gop"] = gop_row
-        if not recv["byte_identical"]:
-            fail(f"{name}: the receiver's frames differ from the sender's")
+        # received in a fresh process at the end of the phase (``phase_zoo``)
+        row["gop"] = {"sender_wall_s": wall, "n_updates": gop.n_updates,
+                      "accepts": gop.accepts, "update_s": gop.update_s, "bits": gop.bits,
+                      "attention_launches": n,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        row["to_receive"] = (gop, cfg, ["codec.entropy_backend=device", *config_mods])
         if n != per_update * gop.n_updates:
             fail(f"{name}: the GOP launched {n} attention kernels over {gop.n_updates} "
                  f"updates, not {per_update} each")
@@ -2484,14 +2577,433 @@ def phase_zoo_library(torch):
 
 def phase_zoo(torch, attn, layers, coder, lpips, video):
     """Phase 18: the SPADE, 3-D and pseudo-3-D NCSN++ at the flagship widths
-    (18a-c, ``phase_zoo_arch``), then the library families on the card (18d)."""
+    (18a-c, ``phase_zoo_arch``), the library families on the card (18d), then
+    18b's receivers, together in fresh processes (for the script's time)."""
     rows, launches = {}, {}
     for name, mods, millions in ZOO:
         rows[name], more = phase_zoo_arch(torch, attn, layers, name, mods, millions, coder,
                                           lpips, video)
         launches.update(more)
     rows["library"] = phase_zoo_library(torch)
+    sent = [(name, rows[name].pop("to_receive")) for name, *_ in ZOO
+            if "to_receive" in rows[name]]
+    handles = [start_receiver(gop, cfg, coder, mods, f"receiver {name}")
+               for name, (gop, cfg, mods) in sent]
+    for (name, _), recv in zip(sent, finish_receivers(handles)):
+        rows[name]["gop"].update(recv)
+        log(f"zoo_gop {name} " + json.dumps(rows[name]["gop"]))
+        if not recv["byte_identical"]:
+            fail(f"{name}: the receiver's frames differ from the sender's")
     return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: zoo and bf16 training, the queue, the launcher, sharded serving,
+# validate
+# ---------------------------------------------------------------------------
+
+# 19a trains at B = 1 in the whole run (cut for time: at B > 1 cuDNN times the
+# algorithms of every conv shape, 38-103 s a first step); with ZOO_TRAIN_LARGEST
+# it takes the largest of these batches whose first step fits on the card
+ZOO_TRAIN_BATCHES = (8, 4, 2, 1)
+ZOO_TRAIN_LARGEST = "--zoo-train-largest"
+ZOO_TRAIN_STEPS = 3  # 19a/b: the first step (cuDNN times its algorithms) and two timed
+# 19b: |bf16 loss - float32 loss| / float32 loss from the same state and draws:
+# the bf16 UNet's mean relative error against float32 (tests/test_torch_bf16.py)
+BF16_LOSS_TOL = 2e-2
+# 19b and 19a's kernel rows in bf16: a gradient through the kernel against the
+# plain attention's, relative to its magnitude: the bf16 UNet's largest
+# relative error (tests/test_torch_bf16.py), which the backward's roundings repeat
+BF16_TRAIN_GRAD_TOL = 0.1
+ATTN_GRAD_TOL_BF16 = 2e-2  # bf16 q, k, v: four bf16 ulps of the output's magnitude
+QUEUE_FRAMES = 7  # 19c: the keyframe pair and one update of 5
+QUEUE_THRESHOLD = str(GOP_THRESHOLD)
+QUEUE_SUBSAMPLE = 10  # 19c: 11 UNet calls an update (cut for time)
+ZOO_B1 = "--zoo-b1"  # 19a's fresh process: a B = 1 call of the seeded SPADE net
+PHASE19_ONLY = "--phase19-only"  # phases 1-3 and 19 alone, for bring-up; prints no result
+
+
+def device_train_state(torch, layers, cfg, dtype):
+    """A full-width train state on weights drawn on the card (no host draws),
+    the zero-scaled layers redrawn, and the step of ``make_train_step``."""
+    from tvc_torch.losses.optimizers import get_optimizer
+    from tvc_torch.models.diffusion.ncsnpp import UNetMoreDDPM
+    from tvc_torch.parallel.train import TrainState, make_train_step
+
+    model = UNetMoreDDPM(cfg, device="meta", dtype=dtype).to_empty(device="cuda")
+    layers.init_params(model, torch.Generator(device="cuda").manual_seed(0))
+    layers.redraw_zero_scaled_(model, torch.Generator().manual_seed(1))
+    params = dict(model.named_parameters())
+    opt = {k: v if v.dim() == 0 else v.cuda() for k, v in get_optimizer(cfg).init(params).items()}
+    state = TrainState(model=model, opt_state=opt, step=0,
+                       ema={n: p.detach().clone() for n, p in params.items()})
+    return state, make_train_step(cfg, dtype=dtype, device="cuda")[1]
+
+
+def attention_block_grads(torch, attn, layers, state, cfg, batch, labels, noise):
+    """The DSM gradients of the attention blocks' parameters (GroupNorm_0,
+    NIN_0..2) through the kernel and through the plain attention, at the
+    step's batch: the largest error of each against its magnitude (or a
+    thousandth of the largest of them)."""
+    from unittest import mock
+
+    from tvc_torch.core.runtime import batched_conv_algorithms
+    from tvc_torch.losses.dsm import anneal_dsm_score_estimation
+    from tvc_torch.samplers.schedules import Schedule
+
+    names = [n for n in state.params if any(f".{m}." in n for m in
+                                            ("GroupNorm_0", "NIN_0", "NIN_1", "NIN_2"))]
+    sched = Schedule.from_config(cfg)
+
+    def grads():
+        state.module.zero_grad(set_to_none=True)
+        loss = anneal_dsm_score_estimation(lambda x, y, c, _m: state.model(x, y, c), batch["x"],
+                                           sched, cond=batch["cond"], labels=labels, noise=noise)
+        loss.backward()
+        out = {n: state.params[n].grad.clone() for n in names}
+        state.module.zero_grad(set_to_none=True)
+        return loss.item(), out
+
+    with batched_conv_algorithms(batch["x"].shape[0], "cuda"):
+        loss, got = grads()
+        with mock.patch.object(layers, "attention", attn.attention_plain):
+            ref_loss, want = grads()
+    floor = 1e-3 * max(w.abs().max().item() for w in want.values())
+    rel = {n: (got[n] - w).abs().max().item() / max(w.abs().max().item(), floor)
+           for n, w in want.items()}
+    worst = max(rel, key=rel.get)
+    zero = [n for n in names if not n.endswith("NIN_1.b") and not got[n].abs().max() > 0]
+    return {"attention_block_params": len(names), "loss": loss, "plain_loss": ref_loss,
+            "worst_attention_param": worst, "worst_attention_rel_err": rel[worst],
+            "zero_attention_grads": zero}
+
+
+def timed_steps(torch, attn, state, step_fn, batch, labels, noise):
+    """ZOO_TRAIN_STEPS steps: the first's seconds and peak memory, the
+    others' seconds and their launches."""
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = step_fn(state, batch, labels, noise)
+    loss = loss.item()
+    row = {"first_step_s": time.perf_counter() - t0,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "first_loss": loss}
+    attn.reset_launches()
+    row["step_s"] = []
+    for _ in range(ZOO_TRAIN_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, batch, labels, noise)
+        torch.cuda.synchronize()
+        row["step_s"].append(time.perf_counter() - t0)
+    loss = loss.item()
+    row["launches"] = attn.launches
+    row["peak_mem_gb"] = max(row["peak_mem_gb"], torch.cuda.max_memory_allocated() / 1e9)
+    if not np.isfinite([loss, row["first_loss"]]).all():
+        fail(f"a non-finite training loss: {row}")
+    if row["launches"] != 10 * (ZOO_TRAIN_STEPS - 1):
+        fail(f"{ZOO_TRAIN_STEPS - 1} train steps launched {row['launches']} attention kernels")
+    return row
+
+
+def phase_zoo_train_arch(torch, attn, layers, name, mods, millions, batches):
+    """Phase 19a for one network: the first of ``batches`` whose first step
+    fits on the card (a batch that runs out of memory is reported and the
+    next tried), its first step and the timed ones, and the attention
+    blocks' gradients through the kernel against the plain attention's."""
+    cfg, _ = zoo_config(mods)
+    cfg.optim.warmup = 0
+    state, step_fn = device_train_state(torch, layers, cfg, torch.float32)
+    n_params = sum(p.numel() for p in state.params.values())
+    if round(n_params / 1e6, 1) != millions:
+        fail(f"{name}: expected {millions}M parameters, got {n_params}")
+    row = {"n_params": n_params, "out_of_memory_at": []}
+    for b in batches:
+        batch, labels, noise = train_inputs(torch, cfg, b)
+        try:
+            row.update(timed_steps(torch, attn, state, step_fn, batch, labels, noise))
+        except torch.cuda.OutOfMemoryError:
+            row["out_of_memory_at"].append(b)
+            del batch, labels, noise
+            state.module.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+            continue
+        row["batch"] = b
+        break
+    else:
+        fail(f"{name}: no batch of {batches} trains on the card")
+    row.update(attention_block_grads(torch, attn, layers, state, cfg, batch, labels, noise))
+    log(f"zoo_train {name} " + json.dumps(row))
+    if (row["zero_attention_grads"] or not row["attention_block_params"]
+            or not row["worst_attention_rel_err"] <= TRAIN_GRAD_TOL
+            or not abs(row["loss"] - row["plain_loss"]) <= 1e-5 * abs(row["plain_loss"])):
+        fail(f"{name}: the gradients through the kernel disagree with the plain attention")
+    del state, batch, labels, noise
+    torch.cuda.empty_cache()
+    return row
+
+
+def zoo_b1_bytes(torch):
+    """One B = 1 call of the seeded full-width SPADE net, as bytes."""
+    cfg, _ = zoo_config(ZOO[0][1])
+    return unet_b1(torch, device_seeded_predictor(torch, cfg))
+
+
+def phase_bf16_train(torch, attn, layers, f32_step_s):
+    """Phase 19b: the 2-D net's bf16 step at B = 8 on float32 masters: its
+    loss against the float32 forward's from the same state and draws, the
+    attention blocks' gradients through the kernel against the plain
+    attention's in bf16, and its times beside phase 16b's float32 step."""
+    from tvc_torch.core.config import Config
+    from tvc_torch.core.runtime import batched_conv_algorithms
+    from tvc_torch.losses.dsm import anneal_dsm_score_estimation
+    from tvc_torch.samplers.schedules import Schedule
+
+    cfg = Config()
+    cfg.optim.warmup = 0
+    state, step_fn = device_train_state(torch, layers, cfg, torch.bfloat16)
+    batch, labels, noise = train_inputs(torch, cfg, TRAIN_BATCH)
+    f32 = state.module.with_dtype(torch.float32)
+    with torch.no_grad(), batched_conv_algorithms(TRAIN_BATCH, "cuda"):
+        loss32 = anneal_dsm_score_estimation(lambda x, y, c, _m: f32(x, y, c), batch["x"],
+                                             Schedule.from_config(cfg), cond=batch["cond"],
+                                             labels=labels, noise=noise).item()
+    del f32
+    row = attention_block_grads(torch, attn, layers, state, cfg, batch, labels, noise)
+    row.update(batch=TRAIN_BATCH, f32_loss=loss32,
+               loss_vs_f32_rel=abs(row["loss"] - loss32) / abs(loss32),
+               f32_step_s_phase16b=f32_step_s)
+    row.update(timed_steps(torch, attn, state, step_fn, batch, labels, noise))
+    row["masters_float32"] = all(p.dtype == torch.float32 for p in state.params.values()) and \
+        all(e.dtype == torch.float32 for e in state.ema.values())
+    log("bf16_train " + json.dumps(row))
+    if (not row["masters_float32"] or not row["loss_vs_f32_rel"] <= BF16_LOSS_TOL
+            or row["zero_attention_grads"]
+            or not row["worst_attention_rel_err"] <= BF16_TRAIN_GRAD_TOL):
+        fail(f"the bf16 train step: {row}")
+    del state
+    torch.cuda.empty_cache()
+    return row
+
+
+def write_validate_checkpoint(torch, tmp):
+    """A full-width diffusion checkpoint in the reference's list layout ([0]
+    the DataParallel state dict, [-1] the EMA shadow), drawn on the card."""
+    from tvc_torch.core.config import Config
+
+    sd = {k: v.cpu() for k, v in device_seeded_predictor(torch, Config()).model
+          .state_dict().items()}
+    path = os.path.join(tmp, "checkpoint_validate.pt")
+    torch.save([{"module." + k: v for k, v in sd.items()}, {"step": 0}, sd], path)
+    return path
+
+
+def start_processes_19(torch, tmp, video, ckpts):
+    """Phases 19c, d and f and 19a's fresh B = 1 process, started together:
+    two launcher processes (gloo) running ``sweep --queue-dir`` on a 2-video
+    dataset whose second unit carries a stale claim of a dead owner, a plain
+    ``sweep`` on the same units, ``cli validate`` on phase 12's codec
+    checkpoints and a full-width diffusion checkpoint, and the B = 1 call."""
+    import socket
+
+    from tvc_torch.parallel.queue import WorkQueue
+
+    frames = np.round(video[0, :QUEUE_FRAMES] * 255).astype(np.uint8).transpose(0, 3, 1, 2)
+    data = os.path.join(tmp, "queue_data.npy")
+    np.save(data, np.stack([frames, frames[::-1]]))
+    qdir = os.path.join(tmp, "queue")
+    units = [{"id": f"v{v}_q0", "video": v, "quality": 0} for v in (0, 1)]
+    WorkQueue.create_or_open(qdir, units, stale_after=60.0)
+    with open(os.path.join(qdir, "claims", "v1_q0"), "w") as f:  # a dead owner's claim
+        json.dump({"owner": "dead-host", "t": 0}, f)
+    os.utime(os.path.join(qdir, "claims", "v1_q0"), (time.time() - 3600,) * 2)
+    sweep = ["tvc_torch.cli", "sweep", "--device", "cuda", "--allow-uncalibrated", "--no-fvd",
+             "--data-npy", data, "--end-idx", "1", "--qualities", "0", "--thresholds",
+             QUEUE_THRESHOLD, "--codec-ckpts", *ckpts, "--config-mod",
+             "codec.entropy_backend=device", f"sampling.subsample={QUEUE_SUBSAMPLE}"]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    started = [start_process(["-m", "tvc_torch.parallel.launcher", *sweep[1:],
+                              "--output-path", os.path.join(tmp, "queued"), "--queue-dir", qdir,
+                              "--queue-stale-after", "60"], f"launcher{i}",
+                             {"TVC_COORDINATOR": f"localhost:{port}", "TVC_NUM_PROCESSES": "2",
+                              "TVC_PROCESS_ID": str(i)}) for i in range(2)]
+    started.append(start_process(["-m", *sweep, "--output-path", os.path.join(tmp, "plain")],
+                                 "plain sweep"))
+    started.append(start_process(["-m", "tvc_torch.cli", "validate", "--device", "cuda", "--ckpt",
+                                  write_validate_checkpoint(torch, tmp), "--codec-ckpts",
+                                  *ckpts, "--report", os.path.join(tmp, "validate.json")],
+                                 "validate"))
+    b1 = os.path.join(tmp, "zoo_b1.bin")
+    started.append(start_process([os.path.join(ROOT, "chip_smoke.py"), ZOO_B1, b1], "zoo b1"))
+    return started, qdir, b1
+
+
+def check_processes_19(tmp, qdir, done):
+    """Phases 19c, d and f's checks on the finished processes."""
+    from tvc_torch.parallel.queue import WorkQueue
+
+    def launches(tag):
+        m = re.search(r"attention kernel launches: (\d+)", done[tag][0])
+        return int(m.group(1)) if m else -1
+
+    def points(root, vid):
+        with open(os.path.join(tmp, root, f"output_{vid}", "points.json"), "rb") as f:
+            return f.read()
+
+    texts = [done[f"launcher{i}"][0] for i in range(2)]
+    completed = [int(re.search(r"this process completed (\d+) work units", t).group(1))
+                 for t in texts]
+    wq = WorkQueue(qdir)
+    claims = {}
+    for unit in ("v0_q0", "v1_q0"):
+        with open(os.path.join(qdir, "claims", unit)) as f:
+            claims[unit] = json.load(f)["owner"]
+    row = {"process_walls_s": {t: done[t][1] for t in ("launcher0", "launcher1", "plain sweep",
+                                                       "validate", "zoo b1")},
+           "units_completed": completed, "mergers": sum("[queue] merged" in t for t in texts),
+           "results": sorted(wq.results()), "stale_claims": len(os.listdir(
+               os.path.join(qdir, "stale"))), "claim_owners": claims,
+           "points_equal_plain": [points("queued", v) == points("plain", v) for v in (0, 1)],
+           "launches": {t: launches(t) for t in ("launcher0", "launcher1", "plain sweep")}}
+    log("queue " + json.dumps(row))
+    if (sum(completed) != 2 or row["mergers"] != 1 or row["results"] != ["v0_q0", "v1_q0"]
+            or row["stale_claims"] < 1 or "dead-host" in claims.values()
+            or not all(row["points_equal_plain"]) or row["launches"]["plain sweep"] <= 0):
+        fail(f"the queued sweep over two launcher processes: {row}")
+    with open(os.path.join(tmp, "validate.json")) as f:
+        report = json.load(f)
+    statuses = {r["name"]: r["status"] for r in report["results"]}
+    bf16 = next(r for r in report["results"] if r["name"] == "bf16")
+    vrow = {"statuses": statuses, "summary": report["summary"],
+            "bf16_metrics": bf16.get("metrics"), "bf16_detail": bf16["detail"],
+            "codec_metrics": next(r for r in report["results"]
+                                  if r["name"] == "codec").get("metrics"),
+            "launches": launches("validate"), "wall_s": done["validate"][1]}
+    log("validate " + json.dumps(vrow))
+    want = {"lpips": "skip", "diffusion": "pass", "codec": "pass", "i3d": "skip", "bf16": "skip",
+            "rd": "skip"}
+    if statuses != want or not np.isfinite(bf16["metrics"]["endpoint_mean_abs_drift"]):
+        fail(f"validate's statuses {statuses}, expected {want}")
+    return row, vrow
+
+
+def phase_sharded(torch, attn, video):
+    """Phase 19e: ``FusedGOPSender.run_sharded`` and ``dryrun_serving`` under
+    a world-size-1 NCCL group: run_sharded equal to run_batched byte for byte."""
+    import socket
+
+    import torch.distributed as dist
+
+    from tvc_torch.core.config import Config
+    from tvc_torch.metrics.lpips import LPIPSMetric
+    from tvc_torch.parallel.mesh import make_mesh
+    from tvc_torch.parallel.train import dryrun_serving
+    from tvc_torch.pipeline.fused_gop import FusedGOPSender
+    import tvc_torch.cli as cli
+
+    cfg = Config()
+    cfg.codec.entropy_backend = "device"
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    dist.init_process_group("nccl", init_method="env://", world_size=1, rank=0)
+    try:
+        sender = FusedGOPSender(cfg, device_seeded_predictor(torch, cfg),
+                                cli.build_coder(cfg, "cuda"),
+                                LPIPSMetric.create(seed=0, device="cuda"),
+                                num_frames_total=QUEUE_FRAMES)
+        videos = np.stack([video[0, :QUEUE_FRAMES], video[0, QUEUE_FRAMES - 1::-1]])
+        args = (videos, [3, 4], [1e9, 1e9])  # every prediction accepted: one update
+        attn.reset_launches()
+        t0 = time.perf_counter()
+        sharded = sender.run_sharded(make_mesh(), *args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = attn.launches
+        plain = sender.run_batched(*args)
+        same = {k: sharded[k].cpu().numpy().tobytes() == plain[k].cpu().numpy().tobytes()
+                for k in plain}
+        attn.reset_launches()
+        serving = dryrun_serving(make_mesh(), device="cuda")
+        row = {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+               "run_sharded_wall_s_beside_processes": wall, "launches": launches,
+               "equal_to_run_batched": same,
+               "accepts": sharded["accepts"].cpu().tolist(), "serving": serving,
+               "serving_launches": attn.launches}
+        log("sharded " + json.dumps(row))
+        if not all(same.values()) or launches <= 0 or attn.launches <= 0:
+            fail(f"run_sharded under NCCL: {row}")
+        del sender
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_19(torch, attn, layers, tmp, video, ckpts, f32_step_s, zoo_batches):
+    """Phase 19: (c, d, f) and 19a's fresh process started together, (e)
+    sharded serving run beside them (its wall is shared, its bytes are
+    not), then awaited, so that the steps and kernel rows are timed alone:
+    (a) zoo training at the first of ``zoo_batches`` that fits, (b) bf16
+    training, the kernel rows at the 3-D nets' shapes and in bf16, (a)'s
+    B = 1 bytes."""
+    t0 = time.perf_counter()
+    started, qdir, b1 = start_processes_19(torch, tmp, video, ckpts)
+    rows = {"sharded": phase_sharded(torch, attn, video)}
+    done = finish(started)
+    queue, validate = check_processes_19(tmp, qdir, done)
+    processes_s = time.perf_counter() - t0
+    rows.update(processes_s=processes_s, queue=queue, validate=validate)
+    rows["zoo"] = {name: phase_zoo_train_arch(torch, attn, layers, name, mods, millions,
+                                              zoo_batches)
+                   for name, mods, millions in ZOO}
+    with open(b1, "rb") as f:
+        fresh = f.read()
+    rows["zoo_b1_after_training_identical"] = zoo_b1_bytes(torch) == fresh
+    log(f"zoo_b1 spade after training identical to a fresh process: "
+        f"{rows['zoo_b1_after_training_identical']}")
+    if not rows["zoo_b1_after_training_identical"]:
+        fail("a B = 1 SPADE call after training gave other bytes than a fresh process's")
+    rows["bf16"] = phase_bf16_train(torch, attn, layers, f32_step_s)
+    cases = [(name, bb, t, h, ZOO_LEVEL_CALLS[bb][name]) for bb in (7, 5)
+             for name, t, h, _ in LEVELS]
+    rows["attention_3d"] = attention_grad_rows(torch, attn, cases, torch.float32,
+                                               ATTN_GRAD_TOL, "train_attention_3d")
+    rows["attention_bf16"] = attention_grad_rows(
+        torch, attn, [(name, TRAIN_BATCH, t, h, per_call) for name, t, h, per_call in LEVELS],
+        torch.bfloat16, ATTN_GRAD_TOL_BF16, "train_attention_bf16")
+    launches = {f"zoo_train_{name}": rows["zoo"][name]["launches"] for name, *_ in ZOO}
+    launches.update({"bf16_train_step": rows["bf16"]["launches"],
+                     "queue_sweep_launcher0": queue["launches"]["launcher0"],
+                     "queue_sweep_launcher1": queue["launches"]["launcher1"],
+                     "queue_plain_sweep": queue["launches"]["plain sweep"],
+                     "validate_bf16_drift": validate["launches"],
+                     "run_sharded": rows["sharded"]["launches"],
+                     "dryrun_serving": rows["sharded"]["serving_launches"]})
+    # a launcher whose partner took both units ran no GOP: it launched nothing
+    launches = {k: v for k, v in launches.items()
+                if not (k.startswith("queue_sweep_launcher") and v == 0)}
+    summary = {"zoo": {n: {k: r[k] for k in ("batch", "out_of_memory_at", "first_step_s",
+                                            "step_s", "peak_mem_gb", "worst_attention_rel_err")}
+                       for n, r in rows["zoo"].items()},
+               "bf16": {k: rows["bf16"][k] for k in ("step_s", "first_step_s", "peak_mem_gb",
+                                                    "f32_step_s_phase16b", "loss_vs_f32_rel",
+                                                    "worst_attention_rel_err")},
+               "attention_3d_per_unet_call": {
+                   k: sum(r[k] * r["per_unet_call"] for r in rows["attention_3d"])
+                   for k in ("fwd_ms", "bwd_ms", "plain_fwd_bwd_ms", "sdpa_fwd_bwd_ms",
+                             "bound_fwd_bwd_ms")},
+               "attention_bf16_b8_per_unet_call": {
+                   k: sum(r[k] * r["per_unet_call"] for r in rows["attention_bf16"])
+                   for k in ("fwd_ms", "bwd_ms", "plain_fwd_bwd_ms", "sdpa_fwd_bwd_ms",
+                             "bound_fwd_bwd_ms")},
+               "processes_s": processes_s, "process_walls_s": queue["process_walls_s"],
+               "phase_s": time.perf_counter() - t0}
+    log("phase19_summary " + json.dumps(summary))
+    return rows, launches, summary
 
 
 def main() -> None:
@@ -2502,6 +3014,10 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == [TRAIN_THEN_PREDICT]:
         train_then_predict(torch, sys.argv[2])
+        return
+    if sys.argv[1:2] == [ZOO_B1]:
+        with open(sys.argv[2], "wb") as f:
+            f.write(zoo_b1_bytes(torch))
         return
     from tvc_torch.core.config import Config
     from tvc_torch.core.runtime import numerics, set_numerics
@@ -2545,6 +3061,18 @@ def main() -> None:
 
     cfg = Config()
     cfg.codec.entropy_backend = "device"
+    if PHASE19_ONLY in sys.argv[1:]:
+        t19 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            video = synthetic_video(n=GOP_FRAMES)
+            ckpts, _, _ = write_sweep_inputs(torch, tmp, video)
+            _, launches, _ = phase_19(torch, attn, layers, tmp, video, ckpts, None,
+                                      ZOO_TRAIN_BATCHES if ZOO_TRAIN_LARGEST in sys.argv[1:]
+                                      else (1,))
+        log("launches " + json.dumps(launches))
+        log(f"phase19-only: phase 19 took {time.perf_counter() - t19:.1f} s, the script "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return
     if ZOO_ONLY in sys.argv[1:]:
         t18 = time.perf_counter()
         zoo, zoo_launches = phase_zoo(torch, attn, layers, cli.build_coder(cfg, "cuda"),
@@ -2599,6 +3127,12 @@ def main() -> None:
     t18 = time.perf_counter()
     zoo, zoo_launches = phase_zoo(torch, attn, layers, coder, lpips, video)
     zoo_s = time.perf_counter() - t18
+    del coder, lpips
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpts, _, _ = write_sweep_inputs(torch, tmp, video)
+        _, phase19_launches, phase19_summary = phase_19(
+            torch, attn, layers, tmp, video, ckpts, min(training["step"]["step_s"]), (1,))
     path_launches = {"run_gop": gop["attention_launches"],
                      "device_gop": device_gop["attention_launches"],
                      "fused_run": fused["attention_launches"],
@@ -2617,7 +3151,7 @@ def main() -> None:
                      "cli_train_resumed": training["cli"]["resumed"]["launches"],
                      "train_loop": training["loop"]["launches"],
                      "b1_update_after_training": training["b1"]["launches"],
-                     **bf16_launches, **zoo_launches}
+                     **bf16_launches, **zoo_launches, **phase19_launches}
     log("launches " + json.dumps(path_launches))
     main_launches = sum(path_launches.values())
     if min(path_launches.values()) <= 0:
@@ -2698,6 +3232,7 @@ def main() -> None:
         "attention_3d_per_unet_call": {
             k: sum(r[k] * r["per_unet_call"] for r in zoo_rows)
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "phase19": phase19_summary,
         "numerics": numerics(),
         "total_s": time.perf_counter() - t_start}))
     kernels = [{

@@ -41,8 +41,8 @@ from tvc_torch.parallel import collectives
 from tvc_torch.parallel import mesh as mesh_module
 from tvc_torch.parallel.mesh import (Mesh, data_sharding, initialize_distributed, make_mesh,
                                      param_partition_spec, replicated, shard_params)
-from tvc_torch.parallel.train import (SERVING_REFUSAL, dryrun_multichip, dryrun_serving,
-                                      make_train_step, tiny_train_config)
+from tvc_torch.parallel.train import (dryrun_multichip, dryrun_serving, make_train_step,
+                                      tiny_train_config)
 from tvc_torch.samplers.schedules import Schedule
 from tvc_torch.utils.convert import unet_from_jax
 
@@ -85,7 +85,10 @@ res["gather"] = collectives.all_gather_frames(block).numpy()
 res["bcast"] = collectives.broadcast_from(block, src=1).numpy()
 res["ring1"] = collectives.ring_exchange(block, shift=1).numpy()
 res["ring3"] = collectives.ring_exchange(block, shift=3).numpy()
-res["dryrun_loss"] = np.float64(dryrun_multichip(device="cpu")["loss"])
+dryrun = dryrun_multichip(device="cpu")
+res["dryrun_loss"] = np.float64(dryrun["loss"])
+res["dryrun_model_axis"] = np.int64(dryrun["model_axis"])
+res["dryrun_serving_chains"] = np.float64(dryrun["serving_chains"])
 np.savez(out, **res)
 torch.distributed.destroy_process_group()
 """
@@ -212,8 +215,18 @@ def test_mesh_rules_match_jax(monkeypatch):
     assert mesh.axis_names == jmesh.axis_names
     monkeypatch.setattr(mesh_module, "world", lambda: (8, 0))  # a group of 8 processes
     assert make_mesh().shape == {"data": 8, "model": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_mesh(MeshConfig(model_parallel=2))
+    # a model axis of 2 over 8 processes: process r sits where the JAX mesh puts
+    # device r, and takes the data group of its column and the model group of its row
+    monkeypatch.setattr(mesh_module.dist, "new_group", lambda ranks: tuple(ranks))
+    jmesh = j_make_mesh(JMeshConfig(model_parallel=2), devices=jax.devices()[:8])
+    layout = np.vectorize(lambda d: d.id)(jmesh.devices)
+    for rank in range(8):
+        monkeypatch.setattr(mesh_module, "world", lambda r=rank: (8, r))
+        m = make_mesh(MeshConfig(model_parallel=2))
+        assert m.shape == dict(jmesh.shape) == {"data": 4, "model": 2}
+        assert layout[m.data_index, m.model_index] == rank
+        assert m.model_group == tuple(layout[m.data_index])
+        assert m.data_group == tuple(layout[:, m.model_index])
     monkeypatch.undo()
     x = torch.arange(8.0)
     halves = [data_sharding(Mesh({"data": 2, "model": 1}, ("data", "model"), r), x)
@@ -260,9 +273,19 @@ def test_shard_params_matches_jax():
 
 
 def test_serving_dry_run_waits_for_a10():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        dryrun_serving(make_mesh())
-    assert "run_sharded" in SERVING_REFUSAL
+    """The sharded serving leg of the dry run, in one process: one chain,
+    every predicted frame accepted."""
+    res = dryrun_serving(make_mesh(), device="cpu")
+    assert res["serving_chains"] == 1 and np.isfinite(res["serving_bits"])
+
+
+def test_dryrun_multichip_takes_a_model_axis_of_two(ddp_run):
+    """Over two processes the dry run takes a model axis of 2, as the JAX
+    package's does on an even device count, and its serving leg runs one
+    chain a process."""
+    for out in ddp_run[1]:
+        assert int(out["dryrun_model_axis"]) == 2
+        assert float(out["dryrun_serving_chains"]) == WORLD
 
 
 def test_dryrun_multichip_single_process():

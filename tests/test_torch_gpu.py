@@ -682,3 +682,55 @@ def test_zoo_library_on_card_matches_cpu(cuda):
     y, bias = rand(2, 4, 4, 8), rand(8)
     torch.testing.assert_close(fused_leaky_relu(y.cuda(), bias.cuda()).cpu(),
                                fused_leaky_relu(y, bias), atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------- zoo and bf16 training
+
+
+@pytest.mark.parametrize("mods,dtype", [({"spade": True, "spade_dim": 16}, torch.float32),
+                                        ({"arch": "unetmore3d"}, torch.float32),
+                                        ({"arch": "unetmorepseudo3d"}, torch.float32),
+                                        ({}, torch.bfloat16)],
+                         ids=["spade", "unetmore3d", "unetmorepseudo3d", "bf16"])
+def test_train_step_on_card_matches_cpu(cuda, mods, dtype):
+    """One DSM step of a narrow zoo net (float32) or of the 2-D net in bf16 on
+    the card against the same step on the CPU: the loss within 1e-4 (float32)
+    or 2e-2 (bf16) relative, every gradient within 1e-3 (float32) or 0.1 (bf16,
+    the bf16 forward's largest relative error, tests/test_torch_bf16.py) of
+    the largest gradient, the masters, moments and EMA float32."""
+    from tvc_torch.parallel.train import make_train_step
+
+    cfg = Config()
+    cfg.data.image_size = 32
+    cfg.model.ngf = 16
+    cfg.model.n_head_channels = 8
+    cfg.model.attn_resolutions = (4, 8, 16)
+    cfg.optim.warmup = 0
+    for k, v in mods.items():
+        setattr(cfg.model, k, v)
+    g = torch.Generator().manual_seed(2)
+    batch = {"x": torch.randn((2, 32, 32, 15), generator=g),
+             "cond": torch.randn((2, 32, 32, 6), generator=g)}
+    labels, noise = torch.tensor([10, 900]), torch.randn((2, 32, 32, 15), generator=g)
+    weights = _random_weights_(UNetMoreDDPM(cfg, device="cpu")).state_dict()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        init_fn, step_fn = make_train_step(cfg, dtype=dtype, device=dev)
+        state = init_fn(0)
+        with torch.no_grad():
+            for n, p in state.params.items():
+                p.copy_(weights[n])
+        before = attn.launches
+        state, loss = step_fn(state, {k: v.to(dev) for k, v in batch.items()},
+                              labels.to(dev), noise.to(dev))
+        out[dev] = (float(loss), {n: p.grad.float().cpu() for n, p in state.params.items()},
+                    attn.launches - before)
+        assert all(p.dtype == state.ema[n].dtype == state.opt_state[f"mu/{n}"].dtype
+                   == torch.float32 for n, p in state.params.items())
+    (loss_c, grads_c, _), (loss_g, grads_g, launches) = out["cpu"], out["cuda"]
+    loss_tol, grad_tol = (1e-4, 1e-3) if dtype == torch.float32 else (2e-2, 0.1)
+    assert launches > 0
+    assert abs(loss_g - loss_c) <= loss_tol * abs(loss_c)
+    top = max(float(v.abs().max()) for v in grads_c.values())
+    for n in grads_c:
+        assert (grads_g[n] - grads_c[n]).abs().max().item() <= grad_tol * top, n

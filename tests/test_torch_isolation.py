@@ -19,7 +19,8 @@ from tvc_torch.models.codec.elic import make_elic
 from tvc_torch.models.diffusion.ncsnpp import UNetMoreDDPM
 from tvc_torch.models.registry import create_model
 from tvc_torch.models.inception import FIDInceptionFeatures
-from tvc_torch.parallel.train import make_train_step
+from tvc_torch.parallel.mesh import make_mesh
+from tvc_torch.parallel.train import dryrun_serving, make_train_step
 from tvc_torch.pipeline.predictor import FramePredictor
 from tvc_torch.pipeline.train_loop import train
 
@@ -74,6 +75,21 @@ def test_model_zoo_modules_import_alone_without_jax(module):
     assert out == "[]", out
 
 
+@pytest.mark.parametrize("module", [
+    "tvc_torch.parallel.queue", "tvc_torch.parallel.launcher", "tvc_torch.parallel.tensor",
+    "tvc_torch.utils.validate", "tvc_torch.utils.dataset"])
+def test_last_slice_modules_import_alone_without_jax(module):
+    """The queue, the launcher, the model axis and the tools, each imported
+    in a fresh process; the tools need no PIL either."""
+    probe = (f"import importlib, sys; importlib.import_module({module!r}); "
+             "print(sorted(m for m in sys.modules "
+             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tvc', 'PIL')))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env, check=True,
+                         capture_output=True, text=True, timeout=120).stdout.strip()
+    assert out == "[]", out
+
+
 @pytest.mark.parametrize("path", ["chip_smoke.py", "tvc_torch"])
 def test_sources_name_no_jax(path):
     """No import statement of the port or its chip script names jax, flax or tvc."""
@@ -102,7 +118,8 @@ def test_sources_name_no_jax(path):
                                    "cli_codec", "cli_gop_send", "cli_gop_receive", "cli_sweep",
                                    "train_step", "train_loop", "cli_train", "fast_predictor",
                                    "bench_pipeline", "bench_main", "unet_spade", "unet_3d",
-                                   "unet_pseudo3d", "legacy_unet", "predictor_3d"])
+                                   "unet_pseudo3d", "legacy_unet", "predictor_3d",
+                                   "dryrun_serving"])
 def test_default_device_raises_without_a_card(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a card; the default device is valid here")
@@ -130,6 +147,8 @@ def test_default_device_raises_without_a_card(entry, tmp_path):
             throughput.bench_pipeline(subsample=2)
         elif entry == "bench_main":
             throughput.main(["--quick", "--no-codec"])
+        elif entry == "dryrun_serving":
+            dryrun_serving(make_mesh())
         elif entry in ("unet_spade", "unet_3d", "unet_pseudo3d", "legacy_unet",
                        "predictor_3d"):
             cfg = Config()

@@ -47,6 +47,7 @@ from tvc.pipeline.fused_gop import FusedGOPSender as JFusedGOPSender
 from tvc.pipeline.sender import DeviceGOPRunner as JDeviceGOPRunner
 from tvc_torch.metrics.pixel import psnr_torch
 from tvc_torch.ops.quantize import ste_round
+from tvc_torch.parallel.mesh import make_mesh
 from tvc_torch.pipeline.batched import BatchedGOPRunner, GOPJob
 from tvc_torch.pipeline.fused_gop import FusedGOPSender
 from tvc_torch.pipeline.keyframe import code_frames, code_frames_device
@@ -444,8 +445,12 @@ def test_fused_run_batched_matches_jax_and_run(pipelines, fused):
         assert one["accepts"].tolist() == a["accepts"][i].tolist()
         np.testing.assert_allclose(one["x_ge"].numpy(), a["x_ge"][i].numpy(), atol=1e-5)
         np.testing.assert_allclose(float(one["bits"]), float(a["bits"][i]), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="A10"):
-        port.run_sharded(None, videos, [0, 0], thresholds)
+    # one process holds the whole data axis: run_sharded is run_batched, byte for byte
+    sharded = port.run_sharded(make_mesh(), videos, [5, 6], thresholds)
+    plain = port.run_batched(videos, [5, 6], thresholds)
+    for k in plain:
+        assert sharded[k].dtype == plain[k].dtype
+        assert sharded[k].numpy().tobytes() == plain[k].numpy().tobytes(), k
 
 
 def test_fused_run_batched_masks_finished_chains(pipelines, fused):

@@ -203,8 +203,20 @@ def test_drivers_write_the_jax_layout(pipelines, tmp_path, mode):
         pts = json.loads((tmp_path / "port" / f"output_{vid}" / "points.json").read_text())
         assert [sorted(p) for p in pts] == [sorted(dataclasses.asdict(p)) for p in want[vid]]
         assert [p["d"] for p in pts] == [p.d for p in got[vid]]
-    with pytest.raises(NotImplementedError, match="A10"):
-        driver.run_sweep_queued(cfg, data, {0: coder}, pred, str(tmp_path), str(tmp_path / "q"))
+    if mode == "sequential":
+        # the queued driver: the JAX package's files, and the sequential points
+        # (one quality: a unit's GOPs are the sequential sweep's, seed for seed)
+        driver.run_sweep_queued(cfg, data, {0: coder}, pred, str(tmp_path / "port_q"),
+                                str(tmp_path / "q"), with_fvd=False, lpips_metric=lp, **common)
+        jdriver.run_sweep_queued(jcfg, data, {0: jcoder}, jpred, str(tmp_path / "jax_q"),
+                                 str(tmp_path / "jq"), with_fvd=False, lpips_metric=jlp,
+                                 **common)
+        assert _tree(tmp_path / "port_q") == _tree(tmp_path / "jax_q")
+        for vid in got:
+            assert (json.loads((tmp_path / "port_q" / f"output_{vid}" / "points.json")
+                               .read_text())
+                    == json.loads((tmp_path / "port" / f"output_{vid}" / "points.json")
+                                  .read_text()))
 
 
 @pytest.mark.parametrize("mode", ["sequential", "batched"])
@@ -283,9 +295,10 @@ def _dataset(path, n_frames=T):
     (["--fused-gop", "--queue-dir", "q"], "out", "sequential-mode only"),
     (["--device-gop", "--batched", "2"], "out", "drop --batched"),
     ([], "err", "FVD I3D (--i3d-ckpt)"),
-    (["--no-fvd", "--queue-dir", "q"], "err", "A10"),
+    (["--queue-dir", "q"], "err", "FVD I3D (--i3d-ckpt)"),
     (["--i3d-ckpt", "missing.pt"], "err", "no such checkpoint: missing.pt"),
-    (["--no-fvd", "--queue-stale-after", "60"], "err", "A10"),
+    (["--no-fvd", "--queue-dir", "q", "--queue-stale-after", "60"], "err",
+     "--allow-uncalibrated"),
     (["--no-fvd"], "err", "--allow-uncalibrated"),
 ])
 def test_cli_sweep_guards(tmp_path, capsys, args, where, text):

@@ -471,5 +471,20 @@ def test_cli_train_snapshots_and_resumes(tmp_path, capsys):
 
 
 def test_bf16_training_refuses():
-    with pytest.raises(NotImplementedError, match="float32"):
-        make_train_step(tiny_train_cfg(Config), dtype=torch.bfloat16, device="cpu")
+    """bf16 training (Flax's semantics): the forward computes in bf16, the
+    parameters, Adam's moments and the EMA stay float32, and the step moves
+    the float32 masters (tests/test_torch_train_zoo.py holds it against JAX)."""
+    init_fn, step_fn = make_train_step(tiny_train_cfg(Config), dtype=torch.bfloat16,
+                                       device="cpu")
+    state = init_fn(0)
+    assert state.module.dtype == torch.bfloat16
+    before = {n: p.detach().clone() for n, p in state.params.items()}
+    cfg = tiny_train_cfg(Config)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
+    state, loss = step_fn(state, batch, *_jax_draws(jax.random.PRNGKey(3), cfg,
+                                                    batch["x"].shape))
+    assert torch.isfinite(loss) and loss.dtype == torch.float32
+    for n, p in state.params.items():
+        assert p.dtype == state.ema[n].dtype == state.opt_state[f"mu/{n}"].dtype == torch.float32
+        assert p.grad.dtype == torch.float32
+    assert sum(not torch.equal(before[n], p) for n, p in state.params.items()) > 0

@@ -1,5 +1,5 @@
 """tvc_torch command-line interface (counterpart of ``tvc/cli.py``'s ``sweep``,
-``codec``, ``gop``, ``anchors`` and ``train``).
+``codec``, ``gop``, ``anchors``, ``train`` and ``validate``).
 
     python -m tvc_torch.cli sweep --data-npy data.npy --output-path out \
         --i3d-ckpt i3d.pt --qualities 4 5 --batched 8   # rate sweep: points, envelopes, plots
@@ -15,6 +15,8 @@
         --i3d-ckpt i3d.pt                          # H.264/H.265 anchors (needs ffmpeg)
     python -m tvc_torch.cli train --data-npy data.npy --out-dir out --steps 1000 \
         [--resume-from out/ckpt_500]               # DSM training, npz snapshots
+    python -m tvc_torch.cli sweep ... --queue-dir q   # pull (video, quality) units
+    python -m tvc_torch.cli validate --ckpt c.pt --codec-ckpts 0.pth.tar ...
 
 Every command runs on ``--device`` (``cuda`` by default; ``cpu`` on a host
 without a card). Configuration: ``--config`` YAML and ``--config-mod
@@ -325,9 +327,11 @@ def cmd_sweep(argv: List[str]) -> int:
                     help="processes sharing the walks (--batched)")
     ap.add_argument("--process-id", type=int, default=0)
     ap.add_argument("--queue-dir", type=str, default=None,
-                    help="work-queue scheduling (not ported, ROADMAP.md A10)")
-    ap.add_argument("--queue-stale-after", type=float, default=None,
-                    help="the work queue's lease (not ported, ROADMAP.md A10)")
+                    help="pull (video, quality) units from a work queue on a shared "
+                         "filesystem at this path instead of a static --num-processes/"
+                         "--process-id share; a dead process's units are claimed again after "
+                         "--queue-stale-after seconds")
+    ap.add_argument("--queue-stale-after", type=float, default=900.0)
     ap.add_argument("--allow-uncalibrated", action="store_true",
                     help="run on random LPIPS or I3D weights; RD curves are then meaningless, "
                          "and config.yml says provenance.calibrated=false")
@@ -340,13 +344,9 @@ def cmd_sweep(argv: List[str]) -> int:
     if args.device_gop and args.batched:
         print("[tvc_torch] --device-gop runs GOP chains one at a time; drop --batched")
         return 2
-    if args.queue_dir or args.queue_stale_after is not None:
-        print("[tvc_torch] ERROR: --queue-dir and --queue-stale-after need the work queue, "
-              "not ported (ROADMAP.md A10); use --num-processes/--process-id with --batched",
-              file=sys.stderr)
-        return 2
 
-    from tvc_torch.pipeline.driver import load_dataset, run_sweep, run_sweep_batched
+    from tvc_torch.pipeline.driver import (load_dataset, run_sweep, run_sweep_batched,
+                                           run_sweep_queued)
 
     cfg = _load_cfg(args)
     if args.sim_codec:
@@ -367,7 +367,13 @@ def cmd_sweep(argv: List[str]) -> int:
     common = dict(start_idx=args.start_idx, end_idx=args.end_idx, qualities=args.qualities,
                   thresholds=args.thresholds, with_fvd=not args.no_fvd, lpips_metric=lp,
                   fvd_metric=fvd, provenance=provenance, use_psnr=args.decision == "psnr")
-    if args.batched > 0:
+    if args.queue_dir:
+        n = run_sweep_queued(cfg, data, coders, predictor, args.output_path, args.queue_dir,
+                             bench_264=args.bench_264, bench_265=args.bench_265,
+                             stale_after=args.queue_stale_after, device_gop=args.device_gop,
+                             **common)
+        print(f"[queue] this process completed {n} work units", flush=True)
+    elif args.batched > 0:
         run_sweep_batched(cfg, data, coders, predictor, args.output_path,
                           batch_size=args.batched, num_processes=args.num_processes,
                           process_id=args.process_id, **common)
@@ -522,10 +528,59 @@ def cmd_train(argv: List[str]) -> int:
     return 0
 
 
+def cmd_validate(argv: List[str]) -> int:
+    """Load every reference artifact given and hold it against the strongest
+    oracle at hand (``tvc_torch/utils/validate.py``); print a pass/fail/skip
+    line per check and exit 1 on any failure:
+
+      python -m tvc_torch.cli validate --ckpt checkpoint_900000.pt \
+          --codec-ckpts 0.pth.tar ... 5.pth.tar --i3d i3d_pretrained_400.pt \
+          --lpips-alex alexnet.pth --lpips-lin weights/v0.1/alex.pth \
+          --data city_bonn.npy --report validate.json
+    """
+    ap = argparse.ArgumentParser(prog="tvc_torch validate", description=cmd_validate.__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--ckpt", type=str, default=None,
+                    help="diffusion checkpoint_900000.pt (list layout: [0]=sd, [-1]=EMA)")
+    ap.add_argument("--codec-ckpts", nargs="*", default=None,
+                    help="ELIC checkpoints q0..q5 (.pth.tar)")
+    ap.add_argument("--i3d", type=str, default=None, help="I3D weights (.pt state dict)")
+    ap.add_argument("--lpips-alex", type=str, default=None,
+                    help="torchvision alexnet state dict")
+    ap.add_argument("--lpips-lin", type=str, default=None,
+                    help="LPIPS linear heads (reference weights/v0.1/alex.pth)")
+    ap.add_argument("--lpips-lin-vgg", type=str, default=None,
+                    help="LPIPS vgg linear heads (weights/v0.1/vgg.pth)")
+    ap.add_argument("--lpips-lin-squeeze", type=str, default=None,
+                    help="LPIPS squeeze linear heads (weights/v0.1/squeeze.pth)")
+    ap.add_argument("--data", type=str, default=None, help="city_bonn.npy")
+    ap.add_argument("--reference", type=str, default="reference",
+                    help="a checkout of the reference repository, for its torch modules as "
+                         "parity oracles (default: ./reference)")
+    ap.add_argument("--no-bf16", action="store_true", help="skip the bf16 drift check")
+    ap.add_argument("--no-rd", action="store_true", help="skip the real GOP RD point")
+    ap.add_argument("--report", type=str, default=None, help="JSON report path")
+    args = ap.parse_args(argv)
+
+    from tvc_torch.utils.validate import report, run_validation
+
+    results = run_validation(
+        ckpt=args.ckpt, codec_ckpts=args.codec_ckpts, i3d=args.i3d,
+        lpips_alex=args.lpips_alex, lpips_lin=args.lpips_lin, data_npy=args.data,
+        reference=args.reference, with_bf16=not args.no_bf16, with_rd=not args.no_rd,
+        lpips_lin_vgg=args.lpips_lin_vgg, lpips_lin_squeeze=args.lpips_lin_squeeze,
+        device=args.device)
+    from tvc_torch.ops import attention
+
+    print(f"[validate] attention kernel launches: {attention.launches}", flush=True)
+    return report(results, args.report)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     cmds = {"sweep": cmd_sweep, "codec": cmd_codec, "gop": cmd_gop, "anchors": cmd_anchors,
-            "train": cmd_train}
+            "train": cmd_train, "validate": cmd_validate}
     if not argv or argv[0] not in cmds:
         print(f"usage: python -m tvc_torch.cli {{{','.join(cmds)}}} ...")
         return 0 if argv and argv[0] in ("-h", "--help") else 1

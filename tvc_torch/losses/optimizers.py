@@ -23,7 +23,7 @@ State is a flat dict of tensors: ``count`` (the schedule's count),
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -76,11 +76,14 @@ class Optimizer:
                 state[f"{slot}/{n}"] = torch.zeros_like(p, memory_format=torch.contiguous_format)
         return state
 
-    def clip_(self, grads: list) -> None:
-        """optax.clip_by_global_norm, in place."""
+    def clip_(self, grads: list, sq_norm: Optional[torch.Tensor] = None) -> None:
+        """optax.clip_by_global_norm, in place; ``sq_norm`` is the squared
+        global norm where ``grads`` are not all of it (slices of sharded
+        parameters)."""
         if not self.grad_clip or self.grad_clip <= 0:
             return
-        norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+        norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum()
+                          if sq_norm is None else sq_norm)
         # g / 1 * 1 where the norm is below max, else g / norm * max; no host read
         keep = norm < self.grad_clip
         one = torch.ones_like(norm)
@@ -88,13 +91,15 @@ class Optimizer:
         torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(norm, self.grad_clip)))
 
     @torch.no_grad()
-    def step_(self, params: Tensors, grads: Tensors, state: Tensors) -> None:
+    def step_(self, params: Tensors, grads: Tensors, state: Tensors,
+              sq_norm: Optional[Callable] = None) -> None:
         """One update: clip, transform, scale by -lr(count), add to the
-        parameters; ``grads`` are overwritten."""
+        parameters; ``grads`` are overwritten. ``sq_norm(params, grads)``
+        (lists) gives the squared global norm where the tensors are slices."""
         names = list(params)
         p = [params[n] for n in names]
         g = [grads[n] for n in names]
-        self.clip_(g)
+        self.clip_(g, None if sq_norm is None else sq_norm(p, g))
         count = int(state["count"])
         if self.name == "adam":
             mu = [state[f"mu/{n}"] for n in names]

@@ -19,13 +19,14 @@ import torch.distributed as dist
 from tvc_torch.parallel.mesh import world
 
 
-def all_gather_frames(frames: torch.Tensor) -> torch.Tensor:
-    """(B_local, ...) on each process -> (B_global, ...) on every process."""
-    n, _ = world()
+def all_gather_frames(frames: torch.Tensor, group=None) -> torch.Tensor:
+    """(B_local, ...) on each process -> (B_global, ...) on every process of
+    ``group`` (the default group when None)."""
+    n = dist.get_world_size(group) if world()[0] > 1 else 1
     if n == 1:
         return frames.clone()
     parts = [torch.empty_like(frames) for _ in range(n)]
-    dist.all_gather(parts, frames.contiguous())
+    dist.all_gather(parts, frames.contiguous(), group=group)
     return torch.cat(parts, dim=0)
 
 

@@ -1,16 +1,19 @@
 """Process layout over ``torch.distributed`` (counterpart of ``tvc/parallel/mesh.py``).
 
 The JAX package lays its devices out as a 2-D (data, model) mesh. Here each
-process drives one device: NCCL between cards, gloo between CPU processes. The
-data axis is the processes of the group, and each takes its slice of the
-global batch (``data_sharding``); the model axis (tensor parallel) is item
-A10 of ROADMAP.md, so a layout that needs it raises.
+process drives one device: NCCL between cards, gloo between CPU processes.
+Process r sits at (r // tp, r % tp) of a (dp, tp) mesh, as the JAX package's
+``devices.reshape(dp, tp)`` places device r. Each data index takes its slice
+of the global batch (``data_sharding``); the processes of one data index
+form a model group, which shares the work of each large layer
+(``tvc_torch/parallel/tensor.py``), and the processes of one model index
+form a data group, over which gradients are averaged.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,8 +22,6 @@ import torch.distributed as dist
 from tvc_torch.core.config import MeshConfig
 
 PartitionSpec = Tuple[Optional[str], ...]  # a jax PartitionSpec as a tuple; () replicates
-TP_REFUSAL = ("a model axis of {tp}: tensor-parallel sharding over the model axis is not "
-              "ported yet (ROADMAP.md, queue A, A10)")
 
 
 def initialize_distributed(coordinator: Optional[str] = None,
@@ -38,11 +39,26 @@ def initialize_distributed(coordinator: Optional[str] = None,
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A (data, model) layout of the processes; this process's rank."""
+    """A (data, model) layout of the processes; this process's rank and its
+    data and model groups (None: the default group, or no peers)."""
 
     shape: Dict[str, int]
     axis_names: Tuple[str, str]
     rank: int = 0
+    data_group: Any = dataclasses.field(default=None, compare=False)
+    model_group: Any = dataclasses.field(default=None, compare=False)
+
+    @property
+    def tp(self) -> int:
+        return self.shape[self.axis_names[1]]
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.tp
 
 
 def world() -> Tuple[int, int]:
@@ -53,7 +69,9 @@ def world() -> Tuple[int, int]:
 
 
 def make_mesh(cfg: Optional[MeshConfig] = None) -> Mesh:
-    """The (data, model) layout of the default group's processes."""
+    """The (data, model) layout of the default group's processes. With a
+    model axis past 1 every process creates every data and model group, in
+    one order (``dist.new_group`` is collective), and keeps its own two."""
     cfg = cfg or MeshConfig()
     n, rank = world()
     tp = max(1, cfg.model_parallel)
@@ -62,9 +80,13 @@ def make_mesh(cfg: Optional[MeshConfig] = None) -> Mesh:
     dp = n // tp if cfg.data_parallel in (-1, 0) else cfg.data_parallel
     if dp * tp != n:
         raise ValueError(f"mesh {dp}x{tp} != {n} processes")
-    if tp > 1:
-        raise NotImplementedError(TP_REFUSAL.format(tp=tp))
-    return Mesh({cfg.data_axis: dp, cfg.model_axis: tp}, (cfg.data_axis, cfg.model_axis), rank)
+    shape, names = {cfg.data_axis: dp, cfg.model_axis: tp}, (cfg.data_axis, cfg.model_axis)
+    if tp == 1:
+        return Mesh(shape, names, rank)
+    data_groups = [dist.new_group([i * tp + j for i in range(dp)]) for j in range(tp)]
+    model_groups = [dist.new_group([i * tp + j for j in range(tp)]) for i in range(dp)]
+    return Mesh(shape, names, rank, data_group=data_groups[rank % tp],
+                model_group=model_groups[rank // tp])
 
 
 def data_sharding(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
@@ -73,7 +95,7 @@ def data_sharding(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     if x.shape[0] % dp != 0:
         raise ValueError(f"batch {x.shape[0]} is not a multiple of the data axis {dp}")
     per = x.shape[0] // dp
-    return x[mesh.rank * per: (mesh.rank + 1) * per]
+    return x[mesh.data_index * per: (mesh.data_index + 1) * per]
 
 
 def replicated(mesh: Mesh) -> PartitionSpec:
@@ -93,10 +115,10 @@ def param_partition_spec(shape, tp_axis: str, tp_size: int,
 
 
 def _jax_shape(name: str, p: torch.Tensor) -> Tuple[int, ...]:
-    """A port parameter's shape in the JAX layout: conv (O, I, kh, kw) ->
-    (kh, kw, I, O), ``nn.Linear`` (out, in) -> (in, out); NIN's ``W`` and
+    """A port parameter's shape in the JAX layout: conv (O, I, *k) ->
+    (*k, I, O), ``nn.Linear`` (out, in) -> (in, out); NIN's ``W`` and
     vectors as they are."""
-    if p.dim() == 4:
+    if p.dim() >= 3:
         return tuple(p.shape[2:]) + (p.shape[1], p.shape[0])
     if p.dim() == 2 and not name.endswith(".W"):
         return tuple(p.shape[::-1])

@@ -10,8 +10,9 @@ predictor's device by an ``FVDMetric`` (built on seeded random I3D weights
 where none is given), between the decoded GOP and the ground truth, each
 repeated to a batch of two.
 
-Several processes split the work statically with ``partition_work``; the
-queue-driven sweep (``run_sweep_queued``) is item A10 of ROADMAP.md.
+Several processes split the work statically with ``partition_work``
+(``run_sweep_batched``), or pull (video, quality) units from a work queue on
+a shared filesystem (``run_sweep_queued``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import socket
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence
@@ -31,10 +33,13 @@ from tvc_torch.metrics.lpips import LPIPSMetric
 from tvc_torch.metrics.pixel import psnr
 from tvc_torch.metrics.rd import process_data_and_save
 from tvc_torch.parallel.mesh import partition_work
+from tvc_torch.parallel.queue import WorkQueue
 from tvc_torch.pipeline.batched import BatchedGOPRunner, GOPJob
 from tvc_torch.pipeline.predictor import FramePredictor
 from tvc_torch.pipeline.sender import RatePoint, default_thresholds, rate_sweep
 from tvc_torch.utils.plotting import plot
+
+HEARTBEAT_S = 60.0  # the claim's renewal period while a unit runs
 
 
 def load_dataset(path: str) -> np.ndarray:
@@ -189,9 +194,76 @@ def run_sweep(cfg: Config, data: np.ndarray, coders: Dict[int, object],
     return results
 
 
-def run_sweep_queued(*args, **kwargs):
-    raise NotImplementedError("run_sweep_queued needs the shared-filesystem work queue "
-                              "(tvc/parallel/queue.py), item A10 of ROADMAP.md")
+def run_sweep_queued(cfg: Config, data: np.ndarray, coders: Dict[int, object],
+                     predictor: FramePredictor, output_path: str, queue_dir: str,
+                     start_idx: int = 0, end_idx: int = 0, qualities: Sequence[int] = (4, 5),
+                     thresholds: Optional[Sequence[float]] = None, with_fvd: bool = True,
+                     lpips_metric: Optional[LPIPSMetric] = None,
+                     fvd_metric: Optional[Callable] = None, bench_264: Optional[str] = None,
+                     bench_265: Optional[str] = None, owner: Optional[str] = None,
+                     stale_after: float = 900.0, provenance: Optional[dict] = None,
+                     device_gop: bool = False, use_psnr: bool = False) -> int:
+    """The sweep over processes that pull (video, quality) units from the
+    ``WorkQueue`` at ``queue_dir``, in place of a static partition: a unit's
+    work varies (early bpp stops, fallback counts), so pulling keeps every
+    process busy until the queue drains, and a unit whose process died is
+    run again elsewhere once its claim is ``stale_after`` seconds old.
+
+    Unit (v, q) is ``rate_sweep`` over video v at quality q, seeded with
+    ``cfg.seed + v``; a background thread renews its claim every
+    ``HEARTBEAT_S`` seconds while it runs. ``device_gop`` runs the GOPs
+    through one ``DeviceGOPRunner`` per process. The first process to find
+    the queue drained and win ``mark_done("__merged__")`` merges the points
+    per video and writes ``config.yml`` and each video's RD outputs; the
+    others write nothing. Returns the number of units this process ran."""
+    units = [{"id": f"v{vid}_q{q}", "video": vid, "quality": int(q)}
+             for vid in range(start_idx, end_idx + 1) for q in qualities]
+    wq = WorkQueue.create_or_open(queue_dir, units, stale_after=stale_after)
+    owner = owner or f"{socket.gethostname()}:{os.getpid()}"
+    lpips_metric = lpips_metric or LPIPSMetric.create(device=predictor.device)
+    fvd_metric = _fvd(with_fvd, fvd_metric, predictor)
+    n_frames = _gop_frames(data)
+    device_runner = None
+    if device_gop:
+        from tvc_torch.pipeline.sender import DeviceGOPRunner
+
+        device_runner = DeviceGOPRunner(cfg, predictor, lpips=lpips_metric, use_psnr=use_psnr,
+                                        num_frames_total=n_frames)
+
+    def run_unit(job):
+        vid, q = job["video"], job["quality"]
+        stop = threading.Event()
+
+        def beat():  # a unit may outlast the lease between two points
+            while not stop.wait(HEARTBEAT_S):
+                wq.heartbeat(job["id"])
+
+        beater = threading.Thread(target=beat, daemon=True)
+        beater.start()
+        try:
+            points = rate_sweep(cfg, data[vid], coders, predictor, lpips_metric,
+                                fvd_metric=fvd_metric, qualities=[q], thresholds=thresholds,
+                                seed=cfg.seed + vid, num_frames_total=min(30, data[vid].shape[0]),
+                                verbose=False, device_runner=device_runner, use_psnr=use_psnr)
+        finally:
+            stop.set()
+            beater.join()
+        return {"video": vid, "points": [dataclasses.asdict(p) for p in points]}
+
+    n = wq.drain(owner, run_unit)
+    if wq.all_done() and wq.mark_done("__merged__", {"owner": owner}):
+        per_video: Dict[int, List[RatePoint]] = {}
+        for res in wq.results().values():
+            for p in res["points"]:
+                per_video.setdefault(res["video"], []).append(RatePoint(**p))
+        os.makedirs(output_path, exist_ok=True)
+        save_config(cfg, os.path.join(output_path, "config.yml"),
+                    extra={"provenance": provenance} if provenance else None)
+        for vid, points in sorted(per_video.items()):
+            persist_rd_results(vid, points, os.path.join(output_path, f"output_{vid}"),
+                               bench_264, bench_265)
+        print(f"[queue] merged {len(per_video)} videos -> {output_path}", flush=True)
+    return n
 
 
 def persist_rd_results(vid: int, points: Sequence[RatePoint], out_root: str,

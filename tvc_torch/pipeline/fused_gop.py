@@ -18,7 +18,7 @@ a fixed batch, finished chains computed and masked.
 
 Update u of a chain coded with seed s draws its noise from a generator seeded
 by ``update_seed(s, u)``, as ``run_gop`` does, or from ``noise(u)``.
-``run_sharded`` (several cards) is item A10 of ROADMAP.md.
+``run_sharded`` spreads the chains over the processes of the data axis.
 """
 
 from __future__ import annotations
@@ -178,6 +178,30 @@ class FusedGOPSender:
         return self._run(v, list(seeds), list(thresholds), self._forced(forced_accepts, B),
                          self.coder.model, list(noises) if noises is not None else [None] * B)
 
-    def run_sharded(self, *args, **kwargs):
-        raise NotImplementedError("FusedGOPSender.run_sharded needs torch.distributed across "
-                                  "cards, item A10 of ROADMAP.md")
+    def run_sharded(self, mesh, videos: np.ndarray, seeds: Sequence[int],
+                    thresholds: Sequence[float],
+                    noises: Optional[Sequence[NoiseSource]] = None) -> Dict[str, Any]:
+        """The whole-GOP encode with the chains spread over the processes of
+        ``mesh``'s data axis (its model axis must be 1), each on its own
+        device. With one process the caller passes the global batch; with
+        several, each passes its local shard (the same number of chains on
+        every process). Each process runs its chains through ``run_batched``'s
+        lockstep loop, and the outputs are gathered into the global batch
+        along the data axis, in process order: every process returns
+        ``run_batched``'s tensors for all chains.
+
+        The JAX package compiles one sharded ``while_loop`` whose exit test
+        reduces over the chain axis, so its processes must enter it in
+        lockstep, after an ahead-of-time compile and a barrier. Here each
+        process loops on its own chains and meets the others only at the
+        final gather, so none of that is needed."""
+        from tvc_torch.parallel.collectives import all_gather_frames
+
+        if mesh.shape[mesh.axis_names[1]] != 1:
+            raise ValueError("run_sharded spreads chains over the data axis; its mesh has a "
+                             f"model axis of {mesh.shape[mesh.axis_names[1]]}")
+        out = self.run_batched(videos, seeds, thresholds, noises=noises)
+        if mesh.shape[mesh.axis_names[0]] == 1:
+            return out
+        return {k: all_gather_frames(v.to(self.device), group=mesh.data_group).to(v.device)
+                for k, v in out.items()}

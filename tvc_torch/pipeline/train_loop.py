@@ -5,6 +5,11 @@ snapshots, over the train step of ``tvc_torch/parallel/train.py``, so the
 same loop runs in one process or in each process of a group (each takes its
 slice of every global batch).
 
+``dtype`` is the forward's compute dtype (float32 or bfloat16; parameters,
+optimizer state and EMA stay float32), and a model axis past 1
+(``cfg.mesh.model_parallel``) shards the large kernels over the model group;
+snapshots always hold whole tensors.
+
 Data: a (B, T, H, W, C) [0, 1] array (``load_dataset`` of a (B, T, C, H, W)
 npy); each step samples random clips of num_frames_cond + num_frames
 consecutive frames from a ``np.random.RandomState``, the same clips as the
@@ -83,13 +88,14 @@ def train(
         # optimizer state in that case (params/EMA still restored)
         has_opt = os.path.exists(resume_from + ".opt.npz")
         params, ema, start_step, opt = load_train_state(
-            resume_from, state.params, state.ema, state.opt_state if has_opt else None, cfg)
+            resume_from, state.whole(state.params), state.whole(state.ema),
+            state.whole(state.opt_state) if has_opt else None, cfg)
+        params, state.ema = state.local(params), state.local(ema)
         with torch.no_grad():
             for n, p in state.params.items():
                 p.copy_(params[n])
-        state.ema = ema
         if has_opt:
-            state.opt_state = opt
+            state.opt_state = state.local(opt)
         state.step = start_step
         # decorrelate the clip stream and the noise from the first run
         batches = clip_batches(data, cfg, batch_size,
@@ -98,10 +104,12 @@ def train(
     generator = torch.Generator(dev).manual_seed(cfg.seed + start_step)
 
     def snapshot(name: str, step: int) -> None:
+        t = time.time()
+        # whole tensors, so a snapshot is the same whatever the model axis
+        params, ema = state.whole(state.params), state.whole(state.ema)
+        opt = state.whole(state.opt_state)
         if mesh.rank == 0:
-            t = time.time()
-            save_train_state(os.path.join(out_dir, name), state.params, state.ema, step,
-                             opt_state=state.opt_state)
+            save_train_state(os.path.join(out_dir, name), params, ema, step, opt_state=opt)
             print(f"[train] snapshot {name} written in {time.time() - t:.3f} s", flush=True)
 
     loss = torch.tensor(float("nan"))
