@@ -20,15 +20,17 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    of the host rANS coder into ``tvc_torch/build``;
 3. every kernel against its plain PyTorch version on the card, at the shapes
    and in the layout of the flagship UNet (strided heads of (B, T, C)
-   projections; B = 1, 2, 4 and 8, every batch a path below predicts at;
-   float32 and bfloat16), two launches bit-identical,
+   projections; B = 1, 2, 4 and 8, every batch a path below predicts at, and
+   the 3-D nets' b = 7 and 5): float32 through ``attention.cu``, bfloat16
+   through the tensor-core kernel ``attention_tc.cu``; two launches bit-identical,
    with its plan (query tile, key splits, blocks), registers and spills, its
    time, the plain version's, ``scaled_dot_product_attention``'s as a
    yardstick and the bound of the card. Times are device times of a CUDA graph
    of many launches (``eager_ms``: the same launches from the host);
 4. the full-width UNet (default ``Config()``, 262.1M parameters, seeded random
    weights): one forward through the kernel against one through the plain
-   attention on the card, its time, and a profile of one call;
+   attention on the card, its time as a replayed CUDA graph (``unet_ms``;
+   ``unet_eager_ms`` from the host), and a profile of one call;
 5. one predict-and-decide cycle at B = 1 through ``Sender.update`` (101 UNet
    calls, 1010 attention launches) on a seeded synthetic 30-frame 128x128
    video, and its rerun with the same generator seed, which must be
@@ -191,7 +193,9 @@ The last lines are the ``kernels`` JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result; nothing runs on the CPU.
 
-    python3 chip_smoke.py --sweep   # also time every attention plan at the B=1 levels
+    python3 chip_smoke.py --sweep   # also time every attention plan at the B=1 levels,
+                                    # and the bf16 kernel with P rounded once
+    python3 chip_smoke.py --kernels-only [--sweep]   # phases 1-3, no result
     python3 chip_smoke.py --phase19-only [--zoo-train-largest]   # phases 1-3 and 19, no result
 """
 
@@ -316,13 +320,15 @@ def attention_bound_ms(b, h, t, d, itemsize, peak):
 
 def ptxas_entries(report: str) -> dict:
     """Registers and spill bytes of each kernel entry in an ``-Xptxas -v``
-    report, keyed by (dtype, float4 columns a lane owns in p.v)."""
+    report, keyed by its template arguments: (float4 columns a lane owns in
+    p.v,) for ``attention_fwd``, (64-column blocks of d, products a p.v step)
+    for ``attention_tc``."""
     entries, key = {}, None
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '\S*attention_fwdI(f|13__nv_bfloat16)Li(\d+)E",
+        m = re.search(r"Compiling entry function '\S*(?:attention_fwd|attention_tc)I((?:Li\d+E)+)",
                       line)
         if m:
-            key = ("float32" if m.group(1) == "f" else "bfloat16", int(m.group(2)))
+            key = tuple(int(x) for x in re.findall(r"Li(\d+)E", m.group(1)))
             entries[key] = {"registers": None, "spill_bytes": 0}
             continue
         if key is None:
@@ -336,9 +342,49 @@ def ptxas_entries(report: str) -> dict:
     return entries
 
 
+# each kernel's launches on the driven paths (phases 7-19), added up as each
+# path's count is read; the ``kernels`` line reports them
+KERNEL_LAUNCHES = {}
+
+
+def read_launches(attn) -> int:
+    """The attention launches of the path just driven (the counts were set to 0
+    right before it), each kernel's added to KERNEL_LAUNCHES."""
+    for name, n in attn.kernel_launches.items():
+        KERNEL_LAUNCHES[name] = KERNEL_LAUNCHES.get(name, 0) + n
+    return attn.launches
+
+
+def process_launches(text) -> int:
+    """The attention launches a fresh process printed (-1 if none), each
+    kernel's added to KERNEL_LAUNCHES."""
+    m = re.search(r"attention kernel launches: (\d+) (\{.*?\})", text)
+    if not m:
+        return -1
+    for name, n in json.loads(m.group(2)).items():
+        KERNEL_LAUNCHES[name] = KERNEL_LAUNCHES.get(name, 0) + n
+    return int(m.group(1))
+
+
 def head_view(x, b, h, t, d):
     """(B, T, H*d) -> the strided (B, H, T, d) view the attention block passes."""
     return x.view(b, t, h, d).transpose(1, 2)
+
+
+def kernel_tol(dtype, ref):
+    """max |kernel - plain| allowed: F32_TOL in float32; in bf16 two bf16 ulps
+    at the output's magnitude (plain rounds the softmax weights to bf16, the
+    kernel keeps about 16 bits of them)."""
+    if str(dtype) == "torch.float32":
+        return F32_TOL
+    return 2.0 ** -6 * max(1.0, ref.float().abs().max().item())
+
+
+def ptxas_at_head_dim(ptxas, dtype):
+    """Registers and spills of the instantiation the path runs at HEAD_DIM."""
+    if str(dtype) == "torch.float32":
+        return ptxas["attention"][(-(-HEAD_DIM // 64),)]
+    return ptxas["attention_tc"][(-(-HEAD_DIM // 64), 2)]
 
 
 def phase_kernels(torch, attn, ptxas):
@@ -357,10 +403,7 @@ def phase_kernels(torch, attn, ptxas):
                 ref = attn.attention_plain(q, k, v)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
-                if dtype == torch.float32:
-                    tol = F32_TOL
-                else:  # two bf16 ulps at the output's magnitude
-                    tol = 2.0 ** -6 * max(1.0, ref.float().abs().max().item())
+                tol = kernel_tol(dtype, ref)
                 if not err <= tol or not torch.isfinite(out).all():
                     fail(f"attention {name} B={b} {dtype}: max|kernel-plain| {err} > {tol}")
                 if out.transpose(1, 2).stride() != (t * h * HEAD_DIM, h * HEAD_DIM, HEAD_DIM, 1):
@@ -370,7 +413,7 @@ def phase_kernels(torch, attn, ptxas):
                     fail(f"attention {name} B={b} {dtype}: two launches differ")
                 plan = attn.attention_plan(b, h, t, HEAD_DIM, dtype)
                 info = attn.kernel_info(dtype, HEAD_DIM, plan.splits)
-                regs = ptxas[(str(dtype).replace("torch.", ""), -(-HEAD_DIM // 64))]
+                regs = ptxas_at_head_dim(ptxas, dtype)
                 iters = 50 if b * t >= 1024 else 200
                 ms = graph_ms(torch, lambda: attn.attention(q, k, v), iters)
                 eager = time_ms(torch, lambda: attn.attention(q, k, v), iters)
@@ -378,8 +421,10 @@ def phase_kernels(torch, attn, ptxas):
                 lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), iters)
                 bound, by_ops = attention_bound_ms(b, h, t, HEAD_DIM, q.element_size(), peak)
                 row = {"level": name, "B": b, "T": t, "H": h, "d": HEAD_DIM,
-                       "dtype": str(dtype).replace("torch.", ""), "per_unet_call": per_call,
-                       "bq": attn.QUERY_TILE, "splits": plan.splits, "blocks": plan.blocks,
+                       "dtype": str(dtype).replace("torch.", ""), "kernel": attn.KERNELS[dtype],
+                       "per_unet_call": per_call, "bq": attn.QUERY_TILE,
+                       "keys_per_split": plan.keys_per_split, "splits": plan.splits,
+                       "blocks": plan.blocks,
                        "max_abs_err": err, "tol": tol, "ms": ms, "eager_ms": eager,
                        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
                        "bound_by": "operations" if by_ops else "bytes",
@@ -390,65 +435,94 @@ def phase_kernels(torch, attn, ptxas):
 
 
 def phase_kernels_zoo(torch, attn, ptxas):
-    """Phase 3, continued: the kernel at the 3-D nets' shapes (float32), where
-    the frames fold into the batch of the spatial attention: b = 7 on the way
-    down and in the middle, b = 5 on the way up, at B = 1."""
+    """Phase 3, continued: the kernels at the 3-D nets' shapes (float32 and
+    bf16), where the frames fold into the batch of the spatial attention:
+    b = 7 on the way down and in the middle, b = 5 on the way up, at B = 1."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    for b, calls in ZOO_LEVEL_CALLS.items():
-        for name, t, h, _ in LEVELS:
-            q, k, v = (head_view(torch.randn((b, t, h * HEAD_DIM), generator=g, device="cuda"),
-                                 b, h, t, HEAD_DIM) for _ in range(3))
-            out = attn.attention(q, k, v)
-            ref = attn.attention_plain(q, k, v)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            if not err <= F32_TOL or not torch.isfinite(out).all():
-                fail(f"attention {name} b={b} (3-D nets): max|kernel-plain| {err} > {F32_TOL}")
-            if not torch.equal(attn.attention(q, k, v), out):
-                fail(f"attention {name} b={b} (3-D nets): two launches differ")
-            plan = attn.attention_plan(b, h, t, HEAD_DIM, torch.float32)
-            ms = graph_ms(torch, lambda: attn.attention(q, k, v), 50)
-            plain_ms = graph_ms(torch, lambda: attn.attention_plain(q, k, v), 50)
-            lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 50)
-            bound, by_ops = attention_bound_ms(b, h, t, HEAD_DIM, 4, F32_PEAK)
-            row = {"level": name, "B": b, "T": t, "H": h, "d": HEAD_DIM, "dtype": "float32",
-                   "per_unet_call": calls[name], "nets": "unetmore3d, unetmorepseudo3d",
-                   "splits": plan.splits, "blocks": plan.blocks, "max_abs_err": err,
-                   "tol": F32_TOL, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": bound, "bound_by": "operations" if by_ops else "bytes",
-                   "share_of_bound": bound / ms,
-                   **ptxas[("float32", -(-HEAD_DIM // 64))]}
-            rows.append(row)
-            log("attention_shape_3d " + json.dumps(row))
+    for dtype, peak in ((torch.float32, F32_PEAK), (torch.bfloat16, BF16_PEAK)):
+        for b, calls in ZOO_LEVEL_CALLS.items():
+            for name, t, h, _ in LEVELS:
+                q, k, v = (head_view(torch.randn((b, t, h * HEAD_DIM), generator=g,
+                                                 device="cuda").to(dtype), b, h, t, HEAD_DIM)
+                           for _ in range(3))
+                out = attn.attention(q, k, v)
+                ref = attn.attention_plain(q, k, v)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = kernel_tol(dtype, ref)
+                if not err <= tol or not torch.isfinite(out).all():
+                    fail(f"attention {name} b={b} {dtype} (3-D nets): max|kernel-plain| {err} "
+                         f"> {tol}")
+                if not torch.equal(attn.attention(q, k, v), out):
+                    fail(f"attention {name} b={b} {dtype} (3-D nets): two launches differ")
+                plan = attn.attention_plan(b, h, t, HEAD_DIM, dtype)
+                ms = graph_ms(torch, lambda: attn.attention(q, k, v), 50)
+                plain_ms = graph_ms(torch, lambda: attn.attention_plain(q, k, v), 50)
+                lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 50)
+                bound, by_ops = attention_bound_ms(b, h, t, HEAD_DIM, q.element_size(), peak)
+                row = {"level": name, "B": b, "T": t, "H": h, "d": HEAD_DIM,
+                       "dtype": str(dtype).replace("torch.", ""), "kernel": attn.KERNELS[dtype],
+                       "per_unet_call": calls[name], "nets": "unetmore3d, unetmorepseudo3d",
+                       "splits": plan.splits, "blocks": plan.blocks, "max_abs_err": err,
+                       "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": bound, "bound_by": "operations" if by_ops else "bytes",
+                       "share_of_bound": bound / ms, **ptxas_at_head_dim(ptxas, dtype)}
+                rows.append(row)
+                log("attention_shape_3d " + json.dumps(row))
     return rows
 
 
 def phase_sweep(torch, attn):
-    """``--sweep``: the kernel's time at every plan at the B=1 float32 levels."""
-    for name, t, h, _ in LEVELS:
-        g = torch.Generator(device="cuda").manual_seed(3)
-        q, k, v = (head_view(torch.randn((1, t, h * HEAD_DIM), generator=g, device="cuda"),
-                             1, h, t, HEAD_DIM) for _ in range(3))
-        ref = attn.attention_plain(q, k, v)
-        ntiles = -(-t // attn.KEY_TILE)
-        for splits in range(1, attn.MAX_SPLITS + 1):
-            per = -(-ntiles // splits)
-            if -(-ntiles // per) != splits:
-                continue
-            plan = attn.AttentionPlan(splits, per * attn.KEY_TILE,
-                                      h * -(-t // attn.QUERY_TILE) * splits)
-            out = attn.launch(q, k, v, plan)
-            err = (out - ref).abs().max().item()
-            if not err <= F32_TOL:
-                fail(f"sweep {name} {plan}: max|kernel-plain| {err}")
-            ms = graph_ms(torch, lambda: attn.launch(q, k, v, plan), 50)
-            clusters = attn.kernel_info(torch.float32, HEAD_DIM, splits)["max_active_clusters"]
-            log("sweep " + json.dumps({"level": name, "splits": splits, "blocks": plan.blocks,
-                                       "ms": ms, "max_abs_err": err,
-                                       "max_active_clusters": clusters}))
+    """``--sweep``: each kernel's time at every plan at the B=1 levels; then
+    the bf16 kernel with P rounded to bf16 once (``p_terms=1``) against the
+    path's hi + lo at the plans of B = 1 and 8, per UNet call."""
+    for dtype in (torch.float32, torch.bfloat16):
+        tile = attn.KEY_TILE if dtype == torch.float32 else attn.TC_KEY_TILE
+        for name, t, h, _ in LEVELS:
+            g = torch.Generator(device="cuda").manual_seed(3)
+            q, k, v = (head_view(torch.randn((1, t, h * HEAD_DIM), generator=g,
+                                             device="cuda").to(dtype), 1, h, t, HEAD_DIM)
+                       for _ in range(3))
+            ref = attn.attention_plain(q, k, v)
+            tol = kernel_tol(dtype, ref)
+            ntiles = -(-t // tile)
+            for splits in range(1, attn.MAX_SPLITS + 1):
+                per = -(-ntiles // splits)
+                if -(-ntiles // per) != splits:
+                    continue
+                plan = attn.AttentionPlan(splits, per * tile,
+                                          h * -(-t // attn.QUERY_TILE) * splits)
+                out = attn.launch(q, k, v, plan)
+                err = (out.float() - ref.float()).abs().max().item()
+                if not err <= tol:
+                    fail(f"sweep {name} {dtype} {plan}: max|kernel-plain| {err}")
+                ms = graph_ms(torch, lambda: attn.launch(q, k, v, plan), 50)
+                clusters = attn.kernel_info(dtype, HEAD_DIM, splits)["max_active_clusters"]
+                log("sweep " + json.dumps({"level": name, "dtype": str(dtype), "splits": splits,
+                                           "blocks": plan.blocks, "ms": ms, "max_abs_err": err,
+                                           "max_active_clusters": clusters}))
+    for b in (1, 8):
+        per_call = {1: {"ms": 0.0, "max_abs_err": 0.0}, 2: {"ms": 0.0, "max_abs_err": 0.0}}
+        for name, t, h, calls in LEVELS:
+            g = torch.Generator(device="cuda").manual_seed(4)
+            q, k, v = (head_view(torch.randn((b, t, h * HEAD_DIM), generator=g,
+                                             device="cuda").bfloat16(), b, h, t, HEAD_DIM)
+                       for _ in range(3))
+            ref = attn.attention_plain(q, k, v)
+            plan = attn.attention_plan(b, h, t, HEAD_DIM, torch.bfloat16)
+            for terms in (1, 2):
+                out = attn.launch(q, k, v, plan, p_terms=terms)
+                err = (out.float() - ref.float()).abs().max().item()
+                ms = graph_ms(torch, lambda: attn.launch(q, k, v, plan, p_terms=terms), 50)
+                per_call[terms]["ms"] += calls * ms
+                per_call[terms]["max_abs_err"] = max(per_call[terms]["max_abs_err"], err)
+                log("sweep_p_terms " + json.dumps({"level": name, "B": b, "p_terms": terms,
+                                                   "ms": ms, "max_abs_err": err}))
+        log("sweep_p_terms_per_unet_call " + json.dumps({"B": b, "one_rounding": per_call[1],
+                                                         "hi_lo": per_call[2]}))
 
 
 def phase_unet(torch, attn, layers, predictor):
@@ -483,12 +557,20 @@ def phase_unet(torch, attn, layers, predictor):
             f"rel {err / scale:.3e} (tol {UNET_REL_TOL})")
         if not torch.isfinite(out).all() or not scale > 1e-2 or not err <= UNET_REL_TOL * scale:
             fail("full-width forward through the kernel disagrees with the plain attention")
-        unet_ms = time_ms(torch, lambda: model(x, t, cond), 10)
-        log(f"unet forward B=1: {unet_ms:.3f} ms per call (CUDA events, 10 calls)")
+        unet_ms = graph_ms(torch, lambda: model(x, t, cond), 5)
+        eager_ms = time_ms(torch, lambda: model(x, t, cond), 10)
+        log(f"unet forward B=1: {unet_ms:.3f} ms per call as a replayed graph (CUDA events, "
+            f"5 replays of 5 calls), {eager_ms:.3f} ms eager (10 calls from the host)")
         prof_lines = profile_unet(torch, lambda: model(x, t, cond))
     for line in prof_lines:
         log(line)
-    return {"unet_ms": unet_ms, "forward_rel_err": err / scale, "n_params": n_params}
+    return {"unet_ms": unet_ms, "unet_eager_ms": eager_ms, "forward_rel_err": err / scale,
+            "n_params": n_params}
+
+
+def is_attention_kernel(name: str) -> bool:
+    """Whether a profiler kernel name is one of the attention kernels."""
+    return "attention_fwd" in name or "attention_tc" in name
 
 
 def profile_unet(torch, fn):
@@ -505,7 +587,7 @@ def profile_unet(torch, fn):
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     total = sum(e.self_device_time_total for e in events)
-    attn_us = sum(e.self_device_time_total for e in events if "attention_fwd" in e.key)
+    attn_us = sum(e.self_device_time_total for e in events if is_attention_kernel(e.key))
     copies = [e for e in events if "copy" in e.key.lower()]
     lines = [f"profile: one UNet call, {total / 1e3:.3f} ms of device time in "
              f"{len(events)} kernel names",
@@ -647,7 +729,7 @@ def phase_gop(torch, attn, sender, coder, video, config_mods):
         attn.reset_launches()  # the main path starts here
         gop, wall = timed(torch, lambda: run_gop(sender, coder, video[0], cfg.seed, GOP_FRAMES,
                                                   cfg.codec.patch, keep_streams=True))
-        launches = attn.launches  # read right after the main path
+        launches = read_launches(attn)  # read right after the main path
     finally:
         sender.lpips = lpips
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -757,7 +839,7 @@ def phase_device_gop(torch, attn, sender, coder, video, ref):
             gop = runner.run(coder, video[0], cfg.seed, sender.threshold, cfg.codec.patch,
                              timings=timings, keep_streams=True)
             wall = time.perf_counter() - t0
-            launches = attn.launches  # read right after the path
+            launches = read_launches(attn)  # read right after the path
         finally:
             torch.cuda.set_sync_debug_mode(0)
             del coder.compress
@@ -835,7 +917,7 @@ def phase_fused(torch, attn, predictor, coder, lpips, video):
     attn.reset_launches()  # the path starts here
     out, wall = timed(torch, lambda: fused.run(video[0], cfg.seed, GOP_THRESHOLD,
                                                forced_accepts=FUSED_FORCED))
-    launches = attn.launches
+    launches = read_launches(attn)
     n = int(out["n_updates"])
     row = {"run_wall_s": wall, "n_updates": n, "accepts": out["accepts"][:n].tolist(),
            "d": out["d"].tolist(), "bits": float(out["bits"]),
@@ -853,7 +935,7 @@ def phase_fused(torch, attn, predictor, coder, lpips, video):
     forced = np.asarray([[0, 5, -1], [5, 0, 3]])
     attn.reset_launches()
     batched, wall_b = timed(torch, lambda: short.run_batched(videos, seeds, thr, forced))
-    launches_b = attn.launches
+    launches_b = read_launches(attn)
     again = short.run_batched(videos, seeds, thr, forced)
     rerun_same = all(torch.equal(batched[k], again[k]) for k in batched)
     per_chain = []
@@ -910,7 +992,7 @@ def phase_batched(torch, attn, predictor, coder, lpips):
         attn.reset_launches()  # the path starts here
         (results, stats), wall = timed(torch, lambda: runner.run_walks(walks, cfg.seed,
                                                                        cfg.codec.patch))
-        launches = attn.launches
+        launches = read_launches(attn)
         peak = torch.cuda.max_memory_allocated() / 1e9  # cuDNN's timing workspaces too
         torch.cuda.reset_peak_memory_stats()
         again, stats2 = runner.run_walks(walks, cfg.seed, cfg.codec.patch)
@@ -1010,8 +1092,7 @@ def sweep_processes(runs):
     out = []
     for _, tag in runs:
         text, wall = done[tag]
-        ml = re.search(r"attention kernel launches: (\d+)", text)
-        out.append((text, wall, int(ml.group(1)) if ml else -1))
+        out.append((text, wall, process_launches(text)))
     return out
 
 
@@ -1127,7 +1208,7 @@ def phase_seq_sweep(torch, attn, tmp, ckpts, data, config_mods, cfg, predictor, 
                 cfg, video, coders, predictor, out, qualities=[0],
                 thresholds=[float(v) for v in SWEEP_THRESHOLDS], with_fvd=False,
                 lpips_metric=lpips, **flags))
-        n = attn.launches  # read right after the path
+        n = read_launches(attn)  # read right after the path
         for line in buf.getvalue().strip().splitlines():
             log(f"  {name}_sweep| " + line)
         updates, n_points = updates_printed(buf.getvalue())
@@ -1460,7 +1541,7 @@ def phase_samplers(torch, attn, predictor, coder, lpips, video):
                  f"times, not {predictor.n_steps}")
         if not ab[b]["byte_identical"]:
             fail(f"B = {b}: the graphed update differs from the eager loop")
-    launches["graph_vs_eager"] = attn.launches
+    launches["graph_vs_eager"] = read_launches(attn)
     rows["graph_vs_eager"] = ab
     rows["b1_update"] = b1_update
 
@@ -1479,7 +1560,7 @@ def phase_samplers(torch, attn, predictor, coder, lpips, video):
         gop, wall = timed(torch, lambda: run_gop(sender, coder, video[0], cfg.seed,
                                                   SAMPLER_FRAMES, cfg.codec.patch,
                                                   keep_streams=True))
-        n = attn.launches
+        n = read_launches(attn)
         launches[f"{version.lower()}_gop"] = n
         if graph_at(pred_v, 1).replays - replays != gop.n_updates * pred_v.n_steps:
             fail(f"the {version} sender's UNet calls did not all replay its graph")
@@ -1516,7 +1597,7 @@ def phase_samplers(torch, attn, predictor, coder, lpips, video):
             out, wall, _ = update_times(torch, lambda: pred_v.generate(cond1, generator=gen))
             outs.append(out)
             walls.append(wall)
-        n = attn.launches
+        n = read_launches(attn)
         launches[f"{name}_update"] = n
         replays = [st["replays"] for st in pred_v.graphs.stats().values()]
         x_init, noise = pred_v.draws(torch.Generator(device="cuda").manual_seed(60), 1)
@@ -1587,7 +1668,7 @@ def phase_samplers(torch, attn, predictor, coder, lpips, video):
     lrow["anneal_graph_equals_eager"] = (all(torch.equal(o, eager) for o in outs)
                                          and lrow["anneal_graph_replays"] == [2 * n_flat + 1])
     lrow["sigmas"] = [float(v) for v in sigmas]
-    launches["langevin"] = attn.launches
+    launches["langevin"] = read_launches(attn)
     log("langevin " + json.dumps(lrow))
     if not lrow["anneal_graph_equals_eager"]:
         fail("the Langevin sampler's graph differs from its eager loop")
@@ -1775,7 +1856,7 @@ def phase_train_step(torch, attn, layers):
     torch.cuda.reset_peak_memory_stats()
     row["step_s"] = [step_s() for _ in range(3)]
     row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    row["launches"] = attn.launches
+    row["launches"] = read_launches(attn)
     if attn.launches != 10 * (1 + 3):
         fail(f"four full-width train steps launched {attn.launches} attention kernels, not 40")
     log("train_step " + json.dumps(row))
@@ -1807,7 +1888,7 @@ def phase_train_ddp(torch, attn, layers, ref):
         batch, labels, noise = train_inputs(torch, cfg, TRAIN_BATCH)
         attn.reset_launches()
         state, loss = step_fn(state, batch, labels, noise)
-        launches = attn.launches
+        launches = read_launches(attn)
         param_err = max((p.detach() - ref["params"][n]).abs().max().item()
                         for n, p in state.params.items())
         ema_err = max((e - ref["ema"][n]).abs().max().item() for n, e in state.ema.items())
@@ -1839,7 +1920,7 @@ def train_process(args, tag):
         fail(f"the {tag} process exited {proc.returncode}")
     out = proc.stdout
     row = {"process_wall_s": wall, "resumed_from_logged": "resumed from" in out,
-           "launches": int(re.search(r"attention kernel launches: (\d+)", out).group(1)),
+           "launches": process_launches(out),
            "peak_mem_gb": float(re.search(r"peak device memory: ([\d.e+-]+) GB", out).group(1)),
            "loss_lines": re.findall(r"step \d+/\d+ loss .*", out)}
     m = re.search(r"'final_loss': ([^,]+), 'steps': (\d+), 'wall_time': ([\d.e+-]+)", out)
@@ -1902,7 +1983,7 @@ def phase_train_loop(torch, attn, tmp, video, step_s):
             else:
                 row["overlapped_step_s"] = (end - entries[1]) / (TRAIN_LOOP_STEPS - 1)
             row[f"{name}_final_loss"] = result["final_loss"]
-    row["launches"] = attn.launches
+    row["launches"] = read_launches(attn)
     batches = train_loop.clip_batches(data, Config(), TRAIN_BATCH, np.random.RandomState(0))
     row["clip_batch_host_s"] = []
     for _ in range(5):
@@ -1967,6 +2048,7 @@ def phase_train_cli(torch, tmp, video):
 
 
 TRAIN_THEN_PREDICT = "--train-then-predict"  # phase 16e's fresh process
+KERNELS_ONLY = "--kernels-only"  # phases 1-3 alone, for bring-up runs; prints no result
 ZOO_ONLY = "--zoo-only"  # phases 1-3 and 18 alone, for bring-up runs; prints no result
 
 
@@ -2010,7 +2092,7 @@ def phase_train_b1(torch, attn, tmp, predictor, b1_update):
     algorithms a receiver uses)."""
     attn.reset_launches()
     again = eager_generate(predictor, b1_update["cond"], b1_update["x_init"], b1_update["noise"])
-    launches = attn.launches
+    launches = read_launches(attn)
     out = os.path.join(tmp, "trained_b1.bin")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
@@ -2131,7 +2213,7 @@ def conv_share(torch, fn):
     total = sum(e.self_device_time_total for e in kernels)
     conv = sum(e.device_time_total for e in events if e.key == "aten::convolution")
     gn = sum(e.device_time_total for e in events if e.key == "aten::group_norm")
-    attn_us = sum(e.self_device_time_total for e in kernels if "attention_fwd" in e.key)
+    attn_us = sum(e.self_device_time_total for e in kernels if is_attention_kernel(e.key))
     lines = [f"{e.self_device_time_total / 1e3:9.3f} ms {e.self_device_time_total / total:6.1%} "
              f"x{e.count:<5d} {e.key[:90]}"
              for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]]
@@ -2214,7 +2296,7 @@ def phase_bf16_bytes(torch, attn, pred16, coder, lpips, video):
     attn.reset_launches()
     graphed, g_wall, g_dev = update_times(
         torch, lambda: pred16.generate(cond, x_init=x_init, noise=noise))
-    launches = {"bf16_update_graphed": attn.launches}
+    launches = {"bf16_update_graphed": read_launches(attn)}
     eager, e_wall, e_dev = update_times(
         torch, lambda: eager_generate(pred16, cond, x_init, noise))
     row = {"graph_wall_s": g_wall, "graph_event_s": g_dev, "eager_wall_s": e_wall,
@@ -2227,12 +2309,12 @@ def phase_bf16_bytes(torch, attn, pred16, coder, lpips, video):
     attn.reset_launches()
     ref, wall = timed(torch, lambda: run_gop(sender, coder, video[0], cfg.seed, BF16_GOP_FRAMES,
                                               cfg.codec.patch, keep_streams=True))
-    launches["bf16_run_gop"] = attn.launches
+    launches["bf16_run_gop"] = read_launches(attn)
     runner = DeviceGOPRunner(cfg, pred16, lpips=lpips, num_frames_total=BF16_GOP_FRAMES)
     attn.reset_launches()
     gop, dwall = timed(torch, lambda: runner.run(coder, video[0], cfg.seed, GOP_THRESHOLD,
                                                  cfg.codec.patch, keep_streams=True))
-    launches["bf16_device_gop"] = attn.launches
+    launches["bf16_device_gop"] = read_launches(attn)
     same = {"d": gop.d.tolist() == ref.d.tolist(), "accepts": gop.accepts == ref.accepts,
             "bits": gop.bits == ref.bits, "containers": gop.containers == ref.containers,
             "frames": gop.x_ge.tobytes() == ref.x_ge.tobytes()}
@@ -2272,7 +2354,7 @@ def phase_bf16_schedule(torch, attn, predictor, pred16, video):
         attn.reset_launches()
         outs[name], wall, dev = update_times(
             torch, lambda: pred.generate(cond, x_init=x_init, noise=noise))
-        launches[f"update_{name}"] = attn.launches
+        launches[f"update_{name}"] = read_launches(attn)
         rows[name] = {"wall_s": wall, "event_s": dev, "carry": str(pred.carry_dtype),
                       "hi_steps": pred.hi_steps}
     eq = {"f32:101 == f32": outs["f32:101"].cpu().numpy().tobytes()
@@ -2307,7 +2389,7 @@ def harness_process(args, tag):
         fail(f"the {tag} harness's last line is not bench.py's: {last}")
     info = json.loads([ln for ln in proc.stderr.splitlines() if ln.startswith("{")][-1])
     result = json.loads(re.search(r"\[bench\] result (\{.*\})", proc.stderr).group(1))
-    launches = int(re.search(r"attention kernel launches: (\d+)", proc.stderr).group(1))
+    launches = process_launches(proc.stderr)
     row = {"process_wall_s": wall, "last_line": last, "info": info, "result": result,
            "launches": launches}
     log(f"harness_{tag} " + json.dumps(row))
@@ -2445,7 +2527,7 @@ def phase_zoo_arch(torch, attn, layers, name, mods, millions, coder, lpips, vide
         gop, wall = timed(torch, lambda: run_gop(sender, coder, video[0], cfg.seed,
                                                   ZOO_GOP_FRAMES, cfg.codec.patch,
                                                   keep_streams=True))
-        n = attn.launches
+        n = read_launches(attn)
         launches[f"zoo_{name}_gop"] = n
         # received in a fresh process at the end of the phase (``phase_zoo``)
         row["gop"] = {"sender_wall_s": wall, "n_updates": gop.n_updates,
@@ -2474,7 +2556,7 @@ def phase_zoo_arch(torch, attn, layers, name, mods, millions, coder, lpips, vide
         torch, lambda: predictor.generate(cond1, x_init=x_init, noise=noise))
     eager, e_wall, e_dev = update_times(
         torch, lambda: eager_generate(predictor, cond1, x_init, noise))
-    launches[f"zoo_{name}_graph_vs_eager"] = attn.launches
+    launches[f"zoo_{name}_graph_vs_eager"] = read_launches(attn)
     update = {"graph_wall_s": g_wall, "graph_event_s": g_dev, "eager_wall_s": e_wall,
               "eager_event_s": e_dev, "capture_s": entry.capture_s,
               "pool_gb": entry.pool_bytes / 1e9, "replays_in_update": entry.replays - replays,
@@ -2697,7 +2779,7 @@ def timed_steps(torch, attn, state, step_fn, batch, labels, noise):
         torch.cuda.synchronize()
         row["step_s"].append(time.perf_counter() - t0)
     loss = loss.item()
-    row["launches"] = attn.launches
+    row["launches"] = read_launches(attn)
     row["peak_mem_gb"] = max(row["peak_mem_gb"], torch.cuda.max_memory_allocated() / 1e9)
     if not np.isfinite([loss, row["first_loss"]]).all():
         fail(f"a non-finite training loss: {row}")
@@ -2845,8 +2927,7 @@ def check_processes_19(tmp, qdir, done):
     from tvc_torch.parallel.queue import WorkQueue
 
     def launches(tag):
-        m = re.search(r"attention kernel launches: (\d+)", done[tag][0])
-        return int(m.group(1)) if m else -1
+        return process_launches(done[tag][0])
 
     def points(root, vid):
         with open(os.path.join(tmp, root, f"output_{vid}", "points.json"), "rb") as f:
@@ -2922,7 +3003,7 @@ def phase_sharded(torch, attn, video):
         sharded = sender.run_sharded(make_mesh(), *args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = attn.launches
+        launches = read_launches(attn)
         plain = sender.run_batched(*args)
         same = {k: sharded[k].cpu().numpy().tobytes() == plain[k].cpu().numpy().tobytes()
                 for k in plain}
@@ -2932,7 +3013,7 @@ def phase_sharded(torch, attn, video):
                "run_sharded_wall_s_beside_processes": wall, "launches": launches,
                "equal_to_run_batched": same,
                "accepts": sharded["accepts"].cpu().tolist(), "serving": serving,
-               "serving_launches": attn.launches}
+               "serving_launches": read_launches(attn)}
         log("sharded " + json.dumps(row))
         if not all(same.values()) or launches <= 0 or attn.launches <= 0:
             fail(f"run_sharded under NCCL: {row}")
@@ -3041,17 +3122,28 @@ def main() -> None:
         for line in report.strip().splitlines():
             log("  " + line)
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    ptxas = ptxas_entries(reports["attention"])
-    log("ptxas attention_fwd<dtype, float4 cols a lane>: " + json.dumps(
-        {f"{dt},{c}": e for (dt, c), e in sorted(ptxas.items())}))
-    at_192 = [e for (_, c), e in ptxas.items() if c == -(-HEAD_DIM // 64)]
-    if len(at_192) != 2 or any(e["spill_bytes"] for e in at_192):
-        fail(f"expected 2 spill-free instantiations at d = {HEAD_DIM}, got {at_192}")
+    ptxas = {name: ptxas_entries(reports[name]) for name in ("attention", "attention_tc")}
+    log("ptxas attention_fwd<float4 cols a lane>, attention_tc<64-col blocks, p.v terms>: "
+        + json.dumps({name: {",".join(map(str, key)): e for key, e in sorted(entries.items())}
+                      for name, entries in ptxas.items()}))
+    nb = -(-HEAD_DIM // 64)
+    at_192 = [ptxas["attention"].get((nb,)), ptxas["attention_tc"].get((nb, 2)),
+              ptxas["attention_tc"].get((nb, 1))]
+    if any(e is None or e["spill_bytes"] for e in at_192):
+        fail(f"expected 3 spill-free instantiations at d = {HEAD_DIM}, got {at_192}")
 
+    # clusters of 1..8 blocks each kernel's launch at d = HEAD_DIM holds at once
+    # (cudaOccupancyMaxActiveClusters): what its plan's block cap is read from
+    log("max_active_clusters " + json.dumps(
+        {name: [attn.kernel_info(dtype, HEAD_DIM, s)["max_active_clusters"]
+                for s in range(1, attn.MAX_SPLITS + 1)] for dtype, name in attn.KERNELS.items()}))
     rows = phase_kernels(torch, attn, ptxas)
     zoo_rows = phase_kernels_zoo(torch, attn, ptxas)
     if "--sweep" in sys.argv[1:]:
         phase_sweep(torch, attn)
+    if KERNELS_ONLY in sys.argv[1:]:
+        log(f"kernels-only: the script took {time.perf_counter() - t_start:.1f} s")
+        return
 
     import tvc_torch.cli as cli
     from tvc_torch.entropy import rans
@@ -3157,35 +3249,41 @@ def main() -> None:
     if min(path_launches.values()) <= 0:
         fail("a path launched no attention kernel")
 
-    main_rows = [r for r in rows if r["B"] == 1 and r["dtype"] == "float32"]
-    per_call = {r["level"]: r["per_unet_call"] for r in main_rows}
+    if sum(KERNEL_LAUNCHES.values()) != main_launches or \
+            any(KERNEL_LAUNCHES.get(name, 0) <= 0 for name in attn.KERNELS.values()):
+        fail(f"the paths' launches by kernel {KERNEL_LAUNCHES} do not add up to their "
+             f"{main_launches}, or a kernel was not launched")
+    log("launches_by_kernel " + json.dumps(KERNEL_LAUNCHES))
 
-    def per_unet_call(key):
-        return sum(r[key] * per_call[r["level"]] for r in main_rows)
+    def per_unet_call(rs):
+        """One UNet call's launches (at B = 1: 3 at 32x32, 3 at 16x16, 4 at 8x8):
+        times and bounds summed (each level's bound is the larger of its two
+        times), bound by whichever of the two sums is larger."""
+        out = {k: sum(r[k] * r["per_unet_call"] for r in rs)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        ops_ms = sum(r["bound_ms"] * r["per_unet_call"] for r in rs
+                     if r["bound_by"] == "operations")
+        out["bound_by"] = "operations" if 2 * ops_ms >= out["bound_ms"] else "bytes"
+        out["max_abs_err"] = max(r["max_abs_err"] for r in rs)
+        out["launches_per_unet_call"] = sum(r["per_unet_call"] for r in rs)
+        return out
 
-    # each level's bound is the larger of its two times; a call's is their sum
-    ops_ms = sum(r["bound_ms"] * r["per_unet_call"] for r in main_rows
-                 if r["bound_by"] == "operations")
-    byte_ms = sum(r["bound_ms"] * r["per_unet_call"] for r in main_rows
-                  if r["bound_by"] == "bytes")
-    for r in main_rows:
-        log(f"attention {r['level']} B=1 float32: kernel {r['ms']:.4f} ms, SDPA "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-            f"({r['share_of_bound']:.1%} of bound), {r['blocks']} blocks")
-    log(f"attention per UNet call: kernel {per_unet_call('ms'):.4f} ms, SDPA "
-        f"{per_unet_call('library_ms'):.4f} ms, bound {ops_ms + byte_ms:.5f} ms "
-        f"({(ops_ms + byte_ms) / per_unet_call('ms'):.1%} of bound)")
-    # the kernel in bf16 at the bf16 UNet's shapes (phase 3), per UNet call
-    bf16_per_call = {}
-    for b in (1, 8):
-        rs = [r for r in rows if r["B"] == b and r["dtype"] == "bfloat16"]
-        bf16_per_call[b] = {k: sum(r[k] * r["per_unet_call"] for r in rs)
-                            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        bf16_per_call[b]["max_abs_err"] = max(r["max_abs_err"] for r in rs)
-        bf16_per_call[b]["launches_per_unet_call"] = sum(r["per_unet_call"] for r in rs)
-    log("attention_bf16_per_unet_call " + json.dumps(bf16_per_call))
+    calls = {dt: {b: per_unet_call([r for r in rows if r["B"] == b and r["dtype"] == dt])
+                  for b in BATCHES} for dt in ("float32", "bfloat16")}
+    for r in rows:
+        if r["B"] == 1:
+            log(f"attention {r['level']} B=1 {r['dtype']}: kernel {r['ms']:.4f} ms, SDPA "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+                f"({r['share_of_bound']:.1%} of bound), {r['blocks']} blocks")
+    for dt, by_b in calls.items():
+        c = by_b[1]
+        log(f"attention per UNet call, B=1 {dt}: kernel {c['ms']:.4f} ms, SDPA "
+            f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.5f} ms "
+            f"({c['bound_ms'] / c['ms']:.1%} of bound)")
+    log("attention_per_unet_call " + json.dumps(calls))
     log("summary " + json.dumps({
-        "unet_ms": unet["unet_ms"], "cycle_wall_s": cycle["wall_s"],
+        "unet_ms": unet["unet_ms"], "unet_eager_ms": unet["unet_eager_ms"],
+        "cycle_wall_s": cycle["wall_s"],
         "codec_encode_s": {b: codec[b]["encode_s"] for b in ("device", "cpu")},
         "codec_decode_s": {b: codec[b]["decode_s"] for b in ("device", "cpu")},
         "gop_sender_wall_s": gop["sender_wall_s"], "gop_receiver_wall_s": gop["receiver_wall_s"],
@@ -3229,26 +3327,20 @@ def main() -> None:
                 | {"update": {k: zoo[name]["update"][k]
                               for k in ("graph_wall_s", "graph_event_s", "eager_wall_s")}}
                 for name, *_ in ZOO},
+        "attention_per_unet_call": calls,
         "attention_3d_per_unet_call": {
-            k: sum(r[k] * r["per_unet_call"] for r in zoo_rows)
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            dt: {k: sum(r[k] * r["per_unet_call"] for r in zoo_rows if r["dtype"] == dt)
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            for dt in ("float32", "bfloat16")},
         "phase19": phase19_summary,
         "numerics": numerics(),
         "total_s": time.perf_counter() - t_start}))
-    kernels = [{
-        "name": "attention",
-        "route": "cuda",
-        "source": "tvc_torch/csrc/attention.cu",
-        "replaces": "tvc/ops/pallas_attention.py:47",
-        "launches": main_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in main_rows),
-        # the 10 launches of one UNet call at B=1 in float32 (3 at 32x32, 3 at 16x16, 4 at 8x8)
-        "ms": per_unet_call("ms"),
-        "plain_ms": per_unet_call("plain_ms"),
-        "bound_ms": ops_ms + byte_ms,
-        "bound_by": "operations" if ops_ms >= byte_ms else "bytes",
-        "library_ms": per_unet_call("library_ms"),
-    }]
+    # each kernel at its dtype's 10 launches of one UNet call at B = 1
+    kernels = [{"name": name, "route": "cuda", "source": f"tvc_torch/csrc/{_build.SOURCES[name]}",
+                "replaces": "tvc/ops/pallas_attention.py:47", "launches": KERNEL_LAUNCHES[name],
+                **{k: calls[dt][1][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}}
+               for dt, name in (("float32", "attention"), ("bfloat16", "attention_tc"))]
     print(json.dumps({"kernels": kernels}))
     print(smi_name_power())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

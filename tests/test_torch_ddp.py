@@ -94,6 +94,18 @@ torch.distributed.destroy_process_group()
 """
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module: the tier-1 run shares the host's
+    cores among its workers, and an oversubscribed OpenMP pool made one tiny
+    UNet call 10-100x slower on an 8-core host (0.03 s alone, 0.36 s on one
+    thread under load, 5-7 s on eight)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

@@ -9,8 +9,8 @@ PyTorch; there, run it without the suite's conftest (which configures JAX):
 Tolerances: float32 max |kernel - plain| <= 1e-4 on N(0, 1) inputs (the two
 differ only in the order of float32 sums); bfloat16 within two bf16 ulps of
 the output's magnitude (the plain version rounds the softmax weights to bf16,
-the kernel keeps them in float32). Reruns must be bit-identical: the kernel
-joins its key splits in a fixed order.
+the tensor-core kernel keeps about 16 bits of them). Reruns must be
+bit-identical: each kernel joins its key splits in a fixed order.
 """
 
 import pytest
@@ -91,14 +91,76 @@ def test_attention_kernel_unaligned_input_matches_plain(cuda):
     assert (out - attn.attention_plain(q, k, v)).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", [s for s in SHAPES
-                                   if attn.attention_plan(*s, torch.float32).splits > 1],
-                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape,dtype", [
+    (s, dt) for dt in (torch.float32, torch.bfloat16) for s in SHAPES
+    if attn.attention_plan(*s, dt).splits > 1],
+    ids=lambda x: "x".join(map(str, x)) if isinstance(x, tuple) else str(x)[6:])
 def test_attention_kernel_splits_are_bit_repeatable(cuda, shape, dtype):
     assert attn.attention_plan(*shape, dtype).splits > 1
     q, k, v = _heads(shape, dtype, seed=1)
     assert torch.equal(attn.attention(q, k, v), attn.attention(q, k, v))
+
+
+# the bf16 kernel's operands: every head dim up to 256 (d = 40 and 8 pad to
+# one 64-column block) at ragged T (the last key tile and query tile short)
+TC_HEAD_DIMS = (8, 40, 64, 128, 192, 256)
+RAGGED_T = (33, 100, 1000, 1023)
+# the 3-D nets fold their frames into the batch: b = 7 and 5 at the flagship levels
+ZOO_3D = [(b, h, t, d) for b in (7, 5) for _, h, t, d in FLAGSHIP]
+
+
+def _bf16_close(out, ref):
+    scale = max(1.0, ref.float().abs().max().item())
+    return (out.float() - ref.float()).abs().max().item() <= 2.0 ** -6 * scale
+
+
+@pytest.mark.parametrize("t", RAGGED_T)
+@pytest.mark.parametrize("d", TC_HEAD_DIMS)
+def test_tc_kernel_head_dims_and_ragged_t(cuda, d, t):
+    """The bf16 route launches the tensor-core kernel (and only it) at every
+    head dim and ragged T, strided heads in, (B, T, H, d) out."""
+    shape = (2, 2, t, d)
+    q, k, v = _heads(shape, torch.bfloat16, seed=d + t)
+    before = dict(attn.kernel_launches)
+    out = attn.attention(q, k, v)
+    assert attn.kernel_launches["attention_tc"] == before["attention_tc"] + 1
+    assert attn.kernel_launches["attention"] == before["attention"]
+    assert out.shape == q.shape and out.transpose(1, 2).is_contiguous()
+    assert _bf16_close(out, attn.attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("case", ["offset", "row_stride", "head_stride", "contiguous"])
+def test_tc_kernel_unaligned_views_match_plain(cuda, case):
+    """Views whose base or strides are not whole 16-byte chunks (copied by the
+    wrapper before the launch) and a contiguous (B, H, T, d) input."""
+    b, h, t, d = 1, 2, 300, 192
+    g = torch.Generator(device="cuda").manual_seed(9)
+    qkv = []
+    for _ in range(3):
+        if case == "offset":  # one bf16 past a 16-byte boundary
+            x = torch.randn(b * t * h * d + 1, generator=g, device="cuda").bfloat16()[1:]
+            x = x.view(b, t, h, d).transpose(1, 2)
+        elif case == "row_stride":  # rows 4 values apart from a 16-byte multiple
+            x = torch.randn((b, t, h * d + 4), generator=g, device="cuda").bfloat16()[..., 4:]
+            x = x.view(b, t, h, d).transpose(1, 2)
+        elif case == "head_stride":  # heads 4 values apart
+            x = torch.randn((b, h, t * d + 4), generator=g, device="cuda").bfloat16()
+            x = x[..., :t * d].view(b, h, t, d)
+        else:
+            x = torch.randn((b, h, t, d), generator=g, device="cuda").bfloat16()
+        qkv.append(x)
+    out = attn.attention(*qkv)
+    assert out.transpose(1, 2).is_contiguous()
+    assert _bf16_close(out, attn.attention_plain(*qkv))
+    assert torch.equal(out, attn.attention(*qkv))
+
+
+@pytest.mark.parametrize("shape", ZOO_3D, ids=lambda s: "x".join(map(str, s)))
+def test_tc_kernel_3d_shapes_match_plain(cuda, shape):
+    q, k, v = _heads(shape, torch.bfloat16, seed=3)
+    out = attn.attention(q, k, v)
+    assert _bf16_close(out, attn.attention_plain(q, k, v))
+    assert torch.equal(out, attn.attention(q, k, v))
 
 
 def test_attention_kernel_is_bit_repeatable(cuda):
@@ -281,6 +343,31 @@ def test_small_gop_receiver_rebuilds_the_sender_on_card(cuda):
         gop = run_gop(Sender(threshold, cfg, pred, lp), coder, video, seed=4, num_frames_total=10,
                       keep_streams=True)
         rec = run_gop_receiver(cfg, gop.accepts, gop.containers, coder, pred, 4, 10)
+        assert rec.tobytes() == gop.x_ge[0].tobytes()
+
+
+def test_small_bf16_gop_receiver_rebuilds_the_sender_on_card(cuda):
+    """A bf16 predictor (bf16-stored weights, the tensor-core kernel): a fresh
+    receiver's predictor rebuilds the sender's frames byte for byte through
+    accepted predictions and fallback pairs."""
+    import numpy as np
+
+    from tvc_torch.pipeline.predictor import FramePredictor
+    from tvc_torch.pipeline.receiver import run_gop_receiver
+    from tvc_torch.pipeline.sender import Sender, run_gop
+
+    cfg, pred, coder, lp = _narrow_pipeline()
+    video = np.random.RandomState(3).rand(10, 64, 64, 3).astype(np.float32)
+    for threshold in (1e9, -1.0):
+        sender = FramePredictor(cfg, pred.model, dtype=torch.bfloat16,
+                                params_dtype=torch.bfloat16)
+        before = attn.kernel_launches["attention_tc"]
+        gop = run_gop(Sender(threshold, cfg, sender, lp), coder, video, seed=4,
+                      num_frames_total=10, keep_streams=True)
+        assert attn.kernel_launches["attention_tc"] > before
+        receiver = FramePredictor(cfg, pred.model, dtype=torch.bfloat16,
+                                  params_dtype=torch.bfloat16)
+        rec = run_gop_receiver(cfg, gop.accepts, gop.containers, coder, receiver, 4, 10)
         assert rec.tobytes() == gop.x_ge[0].tobytes()
 
 

@@ -31,6 +31,18 @@ from tvc_torch.pipeline.sender import Sender, stack_frames
 from tvc_torch.utils.convert import lpips_from_jax, unet_from_jax
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module: the tier-1 run shares the host's
+    cores among its workers, and an oversubscribed OpenMP pool made one tiny
+    UNet call 10-100x slower on an 8-core host (0.03 s alone, 0.36 s on one
+    thread under load, 5-7 s on eight)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def tiny_cfg(cls):
     """The tiny config of tests/conftest.py (``tiny_pipeline``)."""
     cfg = cls()

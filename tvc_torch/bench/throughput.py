@@ -407,7 +407,8 @@ def main(argv: Optional[List[str]] = None, cfg: Optional[Config] = None) -> int:
     wall = time.perf_counter() - t0
 
     _log("result " + json.dumps(dataclasses.asdict(res)))
-    _log(f"attention kernel launches: {attention.launches}")
+    _log(f"attention kernel launches: {attention.launches} "
+         f"{json.dumps(attention.kernel_launches)}")
     info = {
         "platform": "gpu" if dev.type == "cuda" else dev.type,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type,

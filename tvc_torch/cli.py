@@ -33,6 +33,7 @@ and the sender's numerics stamp (``tvc_torch.core.runtime.numerics_stamp``).
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import tempfile
@@ -383,7 +384,8 @@ def cmd_sweep(argv: List[str]) -> int:
                   device_gop=args.device_gop, **common)
     from tvc_torch.ops import attention
 
-    print(f"[sweep] attention kernel launches: {attention.launches}", flush=True)
+    print(f"[sweep] attention kernel launches: {attention.launches} "
+          f"{json.dumps(attention.kernel_launches)}", flush=True)
     if torch.device(args.device).type == "cuda":
         print(f"[sweep] peak device memory: {torch.cuda.max_memory_allocated() / 1e9} GB",
               flush=True)
@@ -521,7 +523,8 @@ def cmd_train(argv: List[str]) -> int:
                     snapshot_freq=args.snapshot_freq, out_dir=args.out_dir,
                     resume_from=args.resume_from, device=args.device)
     print(metrics)
-    print(f"[train] attention kernel launches: {attention.launches}", flush=True)
+    print(f"[train] attention kernel launches: {attention.launches} "
+          f"{json.dumps(attention.kernel_launches)}", flush=True)
     if torch.device(args.device).type == "cuda":
         print(f"[train] peak device memory: {torch.cuda.max_memory_allocated() / 1e9} GB",
               flush=True)
@@ -573,7 +576,8 @@ def cmd_validate(argv: List[str]) -> int:
         device=args.device)
     from tvc_torch.ops import attention
 
-    print(f"[validate] attention kernel launches: {attention.launches}", flush=True)
+    print(f"[validate] attention kernel launches: {attention.launches} "
+          f"{json.dumps(attention.kernel_launches)}", flush=True)
     return report(results, args.report)
 
 

@@ -1,10 +1,10 @@
-// Fused multi-head attention for the NCSN++ attention blocks, for sm_90a.
+// Fused multi-head attention for the NCSN++ attention blocks in float32, for sm_90a.
 //
 // Replaces the TPU kernel `attention_pallas` (tvc/ops/pallas_attention.py:47,
-// body `_attn_kernel` :34-44): per (batch, head), o = softmax(q k^T d^-1/2) v,
-// no mask, not causal; q, k, v are read as f32 (or bf16 widened to f32), all
-// arithmetic is f32 FMAs on the CUDA cores (no TF32: the bitstream needs full
-// f32), the output is stored in the input dtype.
+// body `_attn_kernel` :34-44) for float32 inputs: per (batch, head),
+// o = softmax(q k^T d^-1/2) v, no mask, not causal; all arithmetic is f32
+// FMAs on the CUDA cores (no TF32: the bitstream needs full f32). bf16 inputs
+// take the tensor-core kernel of attention_tc.cu.
 //
 // The bound on an H100 SXM (67 TFLOP/s f32, 3.35 TB/s), per launch at the
 // flagship UNet's levels (d = 192, B = 1, f32; 4 T^2 d H FLOP against 16 T d H
@@ -27,15 +27,14 @@
 //    the float4 column chunks cx + 16 c (48 accumulators at d = 192): 16
 //    LDS.128 per 192 FMAs. The Q and K rows are whole groups of 8 float4s, so
 //    the 8 lanes of a slice read 8 distinct banks; the P rows are 9 float4s.
-//    ptxas: about 240 registers a thread at d = 192 (f32 and bf16), no spills.
+//    ptxas: about 240 registers a thread at d = 192, no spills.
 // 2. Asynchronous, double-buffered K/V tiles of 32 keys. Q is loaded once per
 //    block; key tile j + 1 is copied with cp.async (16 B a thread,
 //    zero-filled past the split's last key, which masks the ragged tile)
 //    while tile j is computed. One __syncthreads a tile; a warp reads only
-//    the P rows it wrote, so P needs only __syncwarp. bf16 and unaligned f32
-//    inputs take the same kernel with plain loads (8 bf16 per 16-byte load,
-//    widened; or one element at a time). Q, K, V and P take 155 KB of shared
-//    memory at d = 192: one block an SM.
+//    the P rows it wrote, so P needs only __syncwarp. Unaligned inputs take
+//    the same kernel with plain loads, one element at a time. Q, K, V and P
+//    take 155 KB of shared memory at d = 192: one block an SM.
 // 3. Key splits inside a thread-block cluster. The S <= 8 blocks of a query
 //    tile form a cluster along the keys; each runs the online softmax (f32
 //    running max and sum, rescaled accumulator) over its key range and leaves
@@ -62,7 +61,6 @@
 // the same inputs get the same bytes.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -102,9 +100,6 @@ size_t smem_bytes(int d) {
                           (size_t)BQ * LDP);
 }
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-
 __device__ __forceinline__ void cp_async16(float* dst, const void* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
@@ -115,53 +110,40 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float4 bf16x4_to_f32(uint32_t a, uint32_t b) {
-  return make_float4(__uint_as_float(a << 16), __uint_as_float(a & 0xffff0000u),
-                     __uint_as_float(b << 16), __uint_as_float(b & 0xffff0000u));
-}
-
 // Stage rows [r0, r0 + NROWS) of a (rows, d) matrix with row stride rs into
-// shared memory as f32, row stride ld. Rows at or past rlim and columns in
-// [d, dp) are zero. vec: d, the strides and the pointer allow 16-byte loads
-// (then d == dp); a half-warp copies 16 consecutive 16-byte chunks of a row,
-// at most NC4 chunks a lane, f32 through cp.async, bf16 as 8 values a load,
-// widened. Otherwise one element at a time.
-template <int NROWS, int NC4, typename T>
-__device__ __forceinline__ void stage_rows(float* dst, int ld, const T* src, long long rs, int r0,
-                                           int rlim, int d, int dp, bool vec) {
+// shared memory, row stride ld. Rows at or past rlim and columns in [d, dp)
+// are zero. vec: d, the strides and the pointer allow 16-byte loads (then
+// d == dp); a half-warp copies 16 consecutive 16-byte chunks of a row, at
+// most NC4 chunks a lane, through cp.async. Otherwise one element at a time.
+template <int NROWS, int NC4>
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src, long long rs,
+                                           int r0, int rlim, int d, int dp, bool vec) {
   if (vec) {
-    constexpr int E = 16 / sizeof(T);  // elements per 16 bytes
+    constexpr int E = 4;  // elements per 16 bytes
     const int c0 = (threadIdx.x % TX) * E;
 #pragma unroll
     for (int n = 0; n < NROWS / (THREADS / TX); ++n) {
       const int r = threadIdx.x / TX + (THREADS / TX) * n;
       const bool ok = r0 + r < rlim;
-      const T* g = src + (ok ? (r0 + r) * rs : 0);
+      const float* g = src + (ok ? (r0 + r) * rs : 0);
       float* s = dst + r * ld;
 #pragma unroll
       for (int m = 0; m < (NC4 * 4 + E - 1) / E; ++m) {
         const int c = c0 + TX * E * m;
         if (c >= d) break;
-        if constexpr (sizeof(T) == 4) {
-          cp_async16(s + c, g + c, ok);
-        } else {
-          const uint4 raw = ok ? *reinterpret_cast<const uint4*>(g + c) : make_uint4(0, 0, 0, 0);
-          reinterpret_cast<float4*>(s + c)[0] = bf16x4_to_f32(raw.x, raw.y);
-          reinterpret_cast<float4*>(s + c)[1] = bf16x4_to_f32(raw.z, raw.w);
-        }
+        cp_async16(s + c, g + c, ok);
       }
     }
   } else {
     for (int idx = threadIdx.x; idx < NROWS * dp; idx += THREADS) {
       const int r = idx / dp;
       const int c = idx - r * dp;
-      dst[r * ld + c] = (r0 + r < rlim && c < d) ? load_f32(src + (r0 + r) * rs + c) : 0.0f;
+      dst[r * ld + c] = (r0 + r < rlim && c < d) ? src[(r0 + r) * rs + c] : 0.0f;
     }
   }
 }
 
-// Store the first n (<= 4) values of x at p; vec: all 4, as one 16-byte
-// (f32) or 8-byte (bf16) store.
+// Store the first n (<= 4) values of x at p; vec: all 4, as one 16-byte store.
 __device__ __forceinline__ void store4(float* p, float4 x, int n, bool vec) {
   if (vec) {
     *reinterpret_cast<float4*>(p) = x;
@@ -170,20 +152,6 @@ __device__ __forceinline__ void store4(float* p, float4 x, int n, bool vec) {
     if (n > 1) p[1] = x.y;
     if (n > 2) p[2] = x.z;
     if (n > 3) p[3] = x.w;
-  }
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x, int n, bool vec) {
-  if (vec) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y), hi = __floats2bfloat162_rn(x.z, x.w);
-    uint2 u;
-    u.x = *reinterpret_cast<uint32_t*>(&lo);
-    u.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p) = u;
-  } else {
-    p[0] = __float2bfloat16(x.x);
-    if (n > 1) p[1] = __float2bfloat16(x.y);
-    if (n > 2) p[2] = __float2bfloat16(x.z);
-    if (n > 3) p[3] = __float2bfloat16(x.w);
   }
 }
 
@@ -208,10 +176,11 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b, float ac
 // grid (S, ceil(t / BQ), b * h), cluster (S, 1, 1): block x of the cluster
 // takes keys [x * kps, min(t, (x + 1) * kps)) of query tile y of head z.
 // Warp w owns query rows 8w .. 8w + 7 of the tile in both products.
-template <typename T, int NC4>
+template <int NC4>
 __global__ void __launch_bounds__(THREADS, 1)
-attention_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              T* __restrict__ o, Strides st, int h, int t, int d, int kps, float scale, int vec) {
+attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, Strides st, int h, int t, int d,
+              int kps, float scale, int vec) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
 
@@ -443,23 +412,15 @@ attention_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   cluster.sync();  // keep this block's shared memory until the cluster has read it
 }
 
-template <typename T>
-const void* pick_cols(int nc4) {
-  switch (nc4) {
-    case 1: return reinterpret_cast<const void*>(attention_fwd<T, 1>);
-    case 2: return reinterpret_cast<const void*>(attention_fwd<T, 2>);
-    case 3: return reinterpret_cast<const void*>(attention_fwd<T, 3>);
-    default: return reinterpret_cast<const void*>(attention_fwd<T, 4>);
-  }
-}
-
-// The instantiation for (dtype, d), or null if there is none.
-const void* pick(int dtype, int d) {
+// The instantiation for head dim d, or null if there is none.
+const void* pick(int d) {
   if (d <= 0 || d > 4 * 4 * TX) return nullptr;
-  const int nc4 = v_stride(d) / (4 * TX);
-  if (dtype == 0) return pick_cols<float>(nc4);
-  if (dtype == 1) return pick_cols<__nv_bfloat16>(nc4);
-  return nullptr;
+  switch (v_stride(d) / (4 * TX)) {
+    case 1: return reinterpret_cast<const void*>(attention_fwd<1>);
+    case 2: return reinterpret_cast<const void*>(attention_fwd<2>);
+    case 3: return reinterpret_cast<const void*>(attention_fwd<3>);
+    default: return reinterpret_cast<const void*>(attention_fwd<4>);
+  }
 }
 
 // Raise the dynamic shared memory limit of `fn` on the current device `dev`
@@ -518,22 +479,20 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 }  // namespace
 
-// q, k, v, o: (b, h, t, d) arrays on `device` with unit last stride;
+// q, k, v, o: float32 (b, h, t, d) arrays on `device` with unit last stride;
 // strides[0..11] are the batch, head and row strides (in elements) of q, k, v
-// and o, in that order. dtype 0 is float32 and 1 is bfloat16. The keys are
-// cut into `splits` (1..8) ranges of kps keys (a multiple of 32), none empty,
+// and o, in that order. The keys are cut into `splits` (1..8) ranges of kps keys (a multiple of 32), none empty,
 // one cluster block each. Launches on `stream`, a stream of `device`, and
 // does not synchronise. Returns the cudaError_t of the launch (0 on success).
 extern "C" int tvc_attention_forward(const void* q, const void* k, const void* v, void* o,
                                      const long long* strides, int b, int h, int t, int d,
-                                     float scale, int dtype, int splits, int kps, int device,
-                                     void* stream) {
-  const void* fn = pick(dtype, d);
+                                     float scale, int splits, int kps, int device, void* stream) {
+  const void* fn = pick(d);
   if (fn == nullptr || t <= 0 || !valid_splits(t, splits, kps) || b <= 0 || h <= 0 ||
       (long long)b * h > 65535 || (t + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   Strides st;
-  const int e = dtype == 0 ? 4 : 8;  // elements per 16 bytes
+  const int e = 4;  // elements per 16 bytes
   bool vec = d % e == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
   for (int i = 0; i < 4; ++i) {
     st.b[i] = strides[3 * i];
@@ -555,11 +514,11 @@ extern "C" int tvc_attention_forward(const void* q, const void* k, const void* v
   return (int)cudaGetLastError();
 }
 
-// What a launch of the instantiation for (dtype, d) takes, for reports:
+// What a launch of the instantiation for d takes, for reports:
 // info[0] dynamic shared memory bytes a block, info[1] how many clusters of
 // `splits` blocks the current device can hold at once.
-extern "C" int tvc_attention_kernel_info(int dtype, int d, int splits, int* info) {
-  const void* fn = pick(dtype, d);
+extern "C" int tvc_attention_kernel_info(int d, int splits, int* info) {
+  const void* fn = pick(d);
   if (fn == nullptr || splits < 1 || splits > MAX_SPLITS) return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);

@@ -27,7 +27,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 
 # kernel name -> source file under csrc/
-SOURCES = {"attention": "attention.cu"}
+SOURCES = {"attention": "attention.cu", "attention_tc": "attention_tc.cu"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

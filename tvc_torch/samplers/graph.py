@@ -44,6 +44,7 @@ class _Entry:
     inputs: Dict[str, torch.Tensor]
     output: torch.Tensor
     attention_launches: int   # attention kernels the graph launches a replay
+    kernel_launches: Dict[str, int]  # of them, by kernel name
     capture_s: float          # host seconds of the capture
     pool_bytes: int           # device memory the capture reserved (its pool)
     replays: int = 0
@@ -89,19 +90,21 @@ class GraphedEps:
         for name, buf in entry.inputs.items():
             buf.copy_(inputs[name])
         entry.graph.replay()  # raises on a failed replay
-        attention.count_launches(entry.attention_launches)
+        attention.count_launches(entry.attention_launches, entry.kernel_launches)
         entry.replays += 1
         return entry.output.clone()
 
     def _capture(self, key, inputs) -> _Entry:
         static = {k: torch.empty_like(v) for k, v in inputs.items() if v is not None}
         t0 = time.perf_counter()
+        c0 = dict(attention.kernel_captured)
         try:
             graph, out, launches, pool = capture(
                 lambda x, labels, cond=None: self.eps_fn(x, labels, cond), static)
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of the UNet call {key} failed") from e
-        entry = _Entry(graph, static, out, launches, time.perf_counter() - t0, pool)
+        by_kernel = {k: n - c0[k] for k, n in attention.kernel_captured.items()}
+        entry = _Entry(graph, static, out, launches, by_kernel, time.perf_counter() - t0, pool)
         self.entries[key] = entry
         return entry
 

@@ -2,7 +2,7 @@
 
     python -m tvc_torch.tools.attention_phases     # on the card
 
-Builds copies of ``tvc_torch/csrc/attention.cu`` into ``tvc_torch/build``,
+Builds copies of the float32 kernel ``tvc_torch/csrc/attention.cu`` into ``tvc_torch/build``,
 each with some of its phases removed (the q.k product and its shuffle sum,
 the p.v product, the copy of the next K/V tile), and prints each copy's time
 per launch, by CUDA events over a CUDA graph of 50 launches, at the flagship
@@ -57,7 +57,7 @@ def build_variants() -> dict:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
         fn = ctypes.CDLL(str(so)).tvc_attention_forward
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [
-            ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         libs[name] = fn
     return libs
@@ -98,7 +98,7 @@ def main() -> None:
 
             def call():
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b, h,
-                         t, d, d ** -0.5, 0, plan.splits, plan.keys_per_split, 0,
+                         t, d, d ** -0.5, plan.splits, plan.keys_per_split, 0,
                          torch.cuda.current_stream().cuda_stream)
                 if err != 0:
                     raise RuntimeError(f"{name}: CUDA error {err}")
