@@ -390,6 +390,52 @@ def test_device_runner_is_run_gop_on_card(cuda):
         assert got.x_ge.tobytes() == want.x_ge.tobytes()
 
 
+def test_recorder_adds_no_sync_and_counts_every_host_read(cuda, monkeypatch):
+    """A B = 1 ``DeviceGOPRunner`` update with the span recorder on calls
+    ``torch.cuda.synchronize`` no more often than with it off, gives the same
+    frames, and its host reads (``.cpu()`` of a card tensor: the scores, the
+    frames, the device entropy chain's parameters) are the recorder's count."""
+    import numpy as np
+
+    from tvc_torch.pipeline.sender import DeviceGOPRunner
+    from tvc_torch.utils import profiler
+
+    cfg, pred, coder, lp = _narrow_pipeline()
+    video = np.random.RandomState(5).rand(5, 64, 64, 3).astype(np.float32)
+    runner = DeviceGOPRunner(cfg, pred, lpips=lp, num_frames_total=5)
+    runner.run(coder, video, 6, 1e9)  # the eager call and the graph's capture
+    calls = {"sync": 0, "read": 0}
+    sync, cpu = torch.cuda.synchronize, torch.Tensor.cpu
+
+    def counted_sync(*args, **kwargs):
+        calls["sync"] += 1
+        return sync(*args, **kwargs)
+
+    def counted_cpu(self, *args, **kwargs):
+        calls["read"] += int(self.is_cuda)
+        return cpu(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted_sync)
+    monkeypatch.setattr(torch.Tensor, "cpu", counted_cpu)
+
+    def one_update():
+        calls.update(sync=0, read=0)
+        gop = runner.run(coder, video, 6, 1e9)
+        assert gop.n_updates == 1
+        return gop, dict(calls)
+
+    off, off_calls = one_update()
+    with profiler.tracing():
+        on, on_calls = one_update()
+    counters = profiler.record()["counters"]
+    assert on_calls["sync"] <= off_calls["sync"]
+    reads = sum(n for k, n in counters.items() if k.startswith("reads.") and k.count(".") == 1)
+    assert on_calls["read"] == off_calls["read"] == reads
+    assert counters["reads.score"] == 1 and counters["reads.runner"] == 1
+    assert counters["graph.replays"] == pred.n_steps and "graph.captures" not in counters
+    assert on.x_ge.tobytes() == off.x_ge.tobytes() and on.containers == off.containers
+
+
 def test_batched_prediction_reruns_bit_identical(cuda):
     """Predictions at B > 1 (cuDNN's timed algorithm choice) repeat bit for
     bit in a process; a B = 1 prediction is unchanged by them."""

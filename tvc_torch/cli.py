@@ -28,11 +28,21 @@ A GOP payload (``.tvcg``, a numpy ``.npz``) carries what crosses the channel,
 the seed, the accept counts and one container per keyframe coding event,
 and the sender's numerics stamp (``tvc_torch.core.runtime.numerics_stamp``).
 ``gop receive`` exits 2, naming the field, when its own stamp differs.
+
+``gop send`` and ``sweep`` take ``--trace DIR``: the coding runs inside
+``tvc_torch.utils.profiler.device_trace``, which writes ``DIR/trace.json``
+(a ``torch.profiler`` Chrome trace of the host and the card, with a
+``tvc.<span>`` range for each layer's work: runner, predictor, UNet call,
+scoring, keyframe codec and its entropy chain) and ``DIR/counters.json``
+(host reads and uploads with their bytes, UNet graph replays and captures,
+eager UNet calls, kernel builds, frames coded and scored, attention
+launches). Open the trace in Perfetto or ``chrome://tracing``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -52,6 +62,19 @@ def _add_common_args(ap: argparse.ArgumentParser) -> None:
                     help="dotted overrides: section.key=value")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
+def _add_trace_arg(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--trace", type=str, default=None, metavar="DIR",
+                    help="write a profiler trace of the coding with the port's spans "
+                         "(DIR/trace.json) and its counters (DIR/counters.json)")
+
+
+def _trace(args):
+    """The coding's context: ``device_trace(args.trace)``, or nothing."""
+    from tvc_torch.utils.profiler import device_trace
+
+    return device_trace(args.trace) if args.trace else contextlib.nullcontext()
 
 
 def _load_cfg(args):
@@ -223,6 +246,7 @@ def cmd_gop(argv: List[str]) -> int:
                          "read per update); the same payload, byte for byte")
     ap.add_argument("--allow-uncalibrated", action="store_true",
                     help="send: allow accept decisions on random LPIPS weights")
+    _add_trace_arg(ap)
     args = ap.parse_args(argv)
 
     from tvc_torch.core.runtime import numerics_stamp
@@ -246,15 +270,17 @@ def cmd_gop(argv: List[str]) -> int:
         predictor = build_predictor(cfg, args.device, args.ckpt)
         use_psnr = args.decision == "psnr"
         T = min(args.num_frames, video.shape[0])
-        if args.device_gop:
-            runner = DeviceGOPRunner(cfg, predictor, lpips=lp, use_psnr=use_psnr,
-                                     num_frames_total=T)
-            gop = runner.run(coder, video, cfg.seed, args.threshold, patch=cfg.codec.patch,
-                             keep_streams=True)
-        else:
-            sender = Sender(args.threshold, cfg, predictor, lp, use_psnr=use_psnr)
-            gop = run_gop(sender, coder, video, cfg.seed, T, cfg.codec.patch, keep_streams=True)
-        nbytes = write_payload(args.payload, gop, cfg.seed, lp.calibrated, stamp)
+        with _trace(args):
+            if args.device_gop:
+                runner = DeviceGOPRunner(cfg, predictor, lpips=lp, use_psnr=use_psnr,
+                                         num_frames_total=T)
+                gop = runner.run(coder, video, cfg.seed, args.threshold, patch=cfg.codec.patch,
+                                 keep_streams=True)
+            else:
+                sender = Sender(args.threshold, cfg, predictor, lp, use_psnr=use_psnr)
+                gop = run_gop(sender, coder, video, cfg.seed, T, cfg.codec.patch,
+                              keep_streams=True)
+            nbytes = write_payload(args.payload, gop, cfg.seed, lp.calibrated, stamp)
         print(f"[gop send] T={gop.x_ge.shape[1]} bits={gop.bits} bpp={gop.bpp:.6f} "
               f"d={[int(v) for v in gop.d[0]]} accepts={gop.accepts} "
               f"payload={nbytes} bytes -> {args.payload} in {gop.wall_time:.6f} s", flush=True)
@@ -336,6 +362,7 @@ def cmd_sweep(argv: List[str]) -> int:
     ap.add_argument("--allow-uncalibrated", action="store_true",
                     help="run on random LPIPS or I3D weights; RD curves are then meaningless, "
                          "and config.yml says provenance.calibrated=false")
+    _add_trace_arg(ap)
     args = ap.parse_args(argv)
 
     if args.fused_gop and (args.batched or args.queue_dir):
@@ -368,20 +395,21 @@ def cmd_sweep(argv: List[str]) -> int:
     common = dict(start_idx=args.start_idx, end_idx=args.end_idx, qualities=args.qualities,
                   thresholds=args.thresholds, with_fvd=not args.no_fvd, lpips_metric=lp,
                   fvd_metric=fvd, provenance=provenance, use_psnr=args.decision == "psnr")
-    if args.queue_dir:
-        n = run_sweep_queued(cfg, data, coders, predictor, args.output_path, args.queue_dir,
-                             bench_264=args.bench_264, bench_265=args.bench_265,
-                             stale_after=args.queue_stale_after, device_gop=args.device_gop,
-                             **common)
-        print(f"[queue] this process completed {n} work units", flush=True)
-    elif args.batched > 0:
-        run_sweep_batched(cfg, data, coders, predictor, args.output_path,
-                          batch_size=args.batched, num_processes=args.num_processes,
-                          process_id=args.process_id, **common)
-    else:
-        run_sweep(cfg, data, coders, predictor, args.output_path, bench_264=args.bench_264,
-                  bench_265=args.bench_265, fused_gop=args.fused_gop,
-                  device_gop=args.device_gop, **common)
+    with _trace(args):
+        if args.queue_dir:
+            n = run_sweep_queued(cfg, data, coders, predictor, args.output_path, args.queue_dir,
+                                 bench_264=args.bench_264, bench_265=args.bench_265,
+                                 stale_after=args.queue_stale_after,
+                                 device_gop=args.device_gop, **common)
+            print(f"[queue] this process completed {n} work units", flush=True)
+        elif args.batched > 0:
+            run_sweep_batched(cfg, data, coders, predictor, args.output_path,
+                              batch_size=args.batched, num_processes=args.num_processes,
+                              process_id=args.process_id, **common)
+        else:
+            run_sweep(cfg, data, coders, predictor, args.output_path,
+                      bench_264=args.bench_264, bench_265=args.bench_265,
+                      fused_gop=args.fused_gop, device_gop=args.device_gop, **common)
     from tvc_torch.ops import attention
 
     print(f"[sweep] attention kernel launches: {attention.launches} "

@@ -16,8 +16,9 @@ from __future__ import annotations
 import contextlib
 from typing import Dict
 
-import numpy as np
 import torch
+
+from tvc_torch.utils import profiler
 
 
 def set_numerics() -> Dict[str, bool]:
@@ -115,10 +116,11 @@ def batched_conv_algorithms(batch: int, device):
 
 
 def to_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
-    """A numpy array (copied) or tensor as ``dtype`` on ``device``."""
+    """A numpy array (copied, an upload of ``utils/profiler.py``) or tensor as
+    ``dtype`` on ``device``."""
     if torch.is_tensor(x):
         return x.to(device=device, dtype=dtype)
-    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+    return profiler.upload(x, device, dtype)
 
 
 def resolve_device(device) -> torch.device:

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tvc_torch.core.runtime import resolve_device, to_tensor
+from tvc_torch.utils import profiler
 from tvc_torch.metrics.backbones import (
     SQUEEZE_TAPS,
     VGG_TAPS,
@@ -127,8 +128,12 @@ class LPIPSMetric:
 
     @torch.no_grad()
     def __call__(self, a, b) -> torch.Tensor:
-        """a, b: (B, H, W, 3) arrays or tensors; returns (B,) on the metric's device."""
-        return self.model(to_tensor(a, self.device), to_tensor(b, self.device))
+        """a, b: (B, H, W, 3) arrays or tensors; returns (B,) on the metric's
+        device. A ``score`` span of ``utils/profiler.py`` (the uploads and the
+        network; the caller reads the scores), counting ``score.frames``."""
+        with profiler.span("score"):
+            profiler.count("score.frames", len(a))
+            return self.model(to_tensor(a, self.device), to_tensor(b, self.device))
 
     @classmethod
     def create(cls, alex_pth: Optional[str] = None, lin_pth: Optional[str] = None,

@@ -6,7 +6,8 @@ first use; the wrappers load it with ``ctypes``. Nothing is built at import
 time, and nothing here runs on a host without the CUDA toolkit unless a kernel
 is launched. Sources are compiled in parallel, one ``nvcc`` each. A library is
 rebuilt when its key, a hash of every file under ``csrc`` and of the flags,
-differs from the key it was built with.
+differs from the key it was built with. Each compilation counts as
+``kernels.builds`` in ``utils/profiler.py``.
 
     python -m tvc_torch.ops._build      # build every kernel, print ptxas reports
 """
@@ -21,6 +22,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
+
+from tvc_torch.utils import profiler
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -82,6 +85,7 @@ def build(names: Iterable[str] = tuple(SOURCES), force: bool = False) -> Dict[st
     names = list(names)
     BUILD.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if force or _stale(n)]
+    profiler.count("kernels.builds", len(todo))
     procs = {}
     for n in todo:
         tmp = BUILD / f"lib{n}.{os.getpid()}.tmp.so"

@@ -14,6 +14,15 @@ Sweep s of a run draws its noise from a generator seeded by
 A chain's frames depend on the batch it ran in (the UNet's kernels differ
 with the batch size), so they are not ``run_gop``'s frames; a rerun of the
 same jobs gives the same frames.
+
+``run_walks`` records spans of ``utils/profiler.py``: ``runner.walks`` (the
+call), ``runner.backfill`` (new chains and their first pairs' coding),
+``runner.sweep`` (the conditioning, the draws, the prediction and its
+fetch), ``runner.decide`` (one chain's scoring and decision) and
+``runner.fallback`` (a quality's fallback pairs). A span's GOP is the job's
+index counted over the walks in order, a list of them for a span over
+several chains. The prediction's fetch counts as ``reads.runner``, each
+chain's score read as ``reads.score``.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from tvc_torch.metrics.pixel import psnr
 from tvc_torch.pipeline.keyframe import code_frames
 from tvc_torch.pipeline.predictor import FramePredictor
 from tvc_torch.pipeline.sender import GOPResult, NoiseSource, stack_frames, update_draws
+from tvc_torch.utils import profiler
 
 
 @dataclasses.dataclass
@@ -70,7 +80,7 @@ class BatchedGOPRunner:
         if st.job.use_psnr:
             ok = np.asarray([psnr(pred[j], gt[j]) >= st.job.threshold for j in range(f)])
         else:
-            ok = self.lpips(pred[:f], gt).cpu().numpy() <= st.job.threshold
+            ok = profiler.fetch(self.lpips(pred[:f], gt), "score").numpy() <= st.job.threshold
         n_acc = f if ok.all() else int(np.argmin(ok))
         return pred[:n_acc] if n_acc else np.zeros((0,) + pred.shape[1:], pred.dtype)
 
@@ -115,11 +125,26 @@ class BatchedGOPRunner:
         t0 = time.perf_counter()
         B = self.batch_size
         size, c = cfg.data.image_size, cfg.data.channels
+        # a job's GOP id in the spans: its index counted over the walks in order
+        ids, n_jobs = [], 0
+        for walk in walks:
+            ids.append(list(range(n_jobs, n_jobs + len(walk))))
+            n_jobs += len(walk)
 
         results: List[List[Optional[GOPResult]]] = [[None] * len(w) for w in walks]
         ready = [(w, 0) for w in range(len(walks)) if walks[w]]
         active: List[tuple] = []  # (w, j, _ChainState)
         sweeps = started = skipped = 0
+
+        # the GOP ids of a span over several chains, read only while recording
+        def starting():
+            return [ids[w][j] for w, j in starts]
+
+        def stepping():
+            return [ids[w][j] for w, j, _ in active]
+
+        def falling():
+            return [ids[active[s][0]][active[s][1]] for s in slots]
 
         def finish(w: int, j: int, st: _ChainState):
             nonlocal skipped
@@ -134,84 +159,91 @@ class BatchedGOPRunner:
             elif j + 1 < len(walks[w]):
                 ready.append((w, j + 1))
 
-        while ready or active:
-            # backfill free slots; code the new chains' first pairs per quality
-            starts = []
-            while len(active) + len(starts) < B and ready:
-                starts.append(ready.pop(0))
-            if starts:
-                started += len(starts)
-                by_q: Dict[int, List[int]] = {}
-                for k, (w, j) in enumerate(starts):
-                    by_q.setdefault(walks[w][j].quality, []).append(k)
-                for q, ks in by_q.items():
-                    frames = np.concatenate([walks[starts[k][0]][starts[k][1]].video[:nc]
-                                             for k in ks], axis=0)
-                    dec, bits = code_frames(self.coders[q], frames, patch,
-                                            exact=cfg.codec.exact_streams)
-                    for slot, k in enumerate(ks):
-                        w, j = starts[k]
-                        st = _ChainState(job=walks[w][j], x_ge=dec[slot * nc: (slot + 1) * nc],
-                                         d=[1] * nc, bits=sum(bits[slot * nc: (slot + 1) * nc]))
-                        if st.x_ge.shape[0] >= st.job.num_frames_total:
-                            finish(w, j, st)
+        with profiler.span("runner.walks"):
+            while ready or active:
+                # backfill free slots; code the new chains' first pairs per quality
+                starts = []
+                while len(active) + len(starts) < B and ready:
+                    starts.append(ready.pop(0))
+                if starts:
+                    with profiler.span("runner.backfill", gop=starting):
+                        started += len(starts)
+                        by_q: Dict[int, List[int]] = {}
+                        for k, (w, j) in enumerate(starts):
+                            by_q.setdefault(walks[w][j].quality, []).append(k)
+                        for q, ks in by_q.items():
+                            frames = np.concatenate([walks[starts[k][0]][starts[k][1]].video[:nc]
+                                                     for k in ks], axis=0)
+                            dec, bits = code_frames(self.coders[q], frames, patch,
+                                                    exact=cfg.codec.exact_streams)
+                            for slot, k in enumerate(ks):
+                                w, j = starts[k]
+                                st = _ChainState(job=walks[w][j],
+                                                 x_ge=dec[slot * nc: (slot + 1) * nc],
+                                                 d=[1] * nc,
+                                                 bits=sum(bits[slot * nc: (slot + 1) * nc]))
+                                if st.x_ge.shape[0] >= st.job.num_frames_total:
+                                    finish(w, j, st)
+                                else:
+                                    active.append((w, j, st))
+                if not active:
+                    continue  # every fresh start finished on its keyframes
+
+                # one prediction for every active chain, padded to B
+                with profiler.span("runner.sweep", gop=stepping):
+                    conds = np.zeros((B, size, size, c * nc), np.float32)
+                    for slot, (_, _, st) in enumerate(active):
+                        conds[slot] = stack_frames(st.x_ge[None, -nc:])[0]
+                    gen, x_init, eps = update_draws(seed, sweeps, self.predictor.device, noise)
+                    preds = profiler.fetch(self.predictor.generate(
+                        conds, generator=gen, x_init=x_init, noise=eps), "runner").numpy()
+                sweeps += 1
+
+                fallback: Dict[int, List[int]] = {}
+                for slot, (w, j, st) in enumerate(active):
+                    with profiler.span("runner.decide", gop=ids[w][j]):
+                        idx = st.x_ge.shape[0]
+                        # only frames inside the GOP are scored
+                        gt = st.job.video[idx: min(idx + n_pred, st.job.num_frames_total)]
+                        acc = self._decide(st, preds[slot, : gt.shape[0]], gt)
+                        st.n_updates += 1
+                        if acc.shape[0] > 0:
+                            st.x_ge = np.concatenate([st.x_ge, acc], axis=0)
+                            st.d.extend([0] * acc.shape[0])
                         else:
-                            active.append((w, j, st))
-            if not active:
-                continue  # every fresh start finished on its keyframes
+                            fallback.setdefault(st.job.quality, []).append(slot)
+                        if st.x_ge.shape[0] >= st.job.num_frames_total:
+                            st.done = True
 
-            # one prediction for every active chain, padded to B
-            conds = np.zeros((B, size, size, c * nc), np.float32)
-            for slot, (_, _, st) in enumerate(active):
-                conds[slot] = stack_frames(st.x_ge[None, -nc:])[0]
-            gen, x_init, eps = update_draws(seed, sweeps, self.predictor.device, noise)
-            preds = self.predictor.generate(conds, generator=gen, x_init=x_init,
-                                            noise=eps).cpu().numpy()
-            sweeps += 1
+                # Fallback pairs, batched per quality. A chain at its video's end
+                # codes fewer than nc frames (the slice is clamped to the GOP), so
+                # each chain's offsets follow the lengths of the chunks.
+                for q, slots in fallback.items():
+                    with profiler.span("runner.fallback", gop=falling):
+                        chunks = []
+                        for s in slots:
+                            st = active[s][2]
+                            n = st.x_ge.shape[0]
+                            chunks.append(st.job.video[n: min(n + nc, st.job.num_frames_total)])
+                        offs = np.concatenate([[0], np.cumsum([ch.shape[0] for ch in chunks])])
+                        dec, bits = code_frames(self.coders[q], np.concatenate(chunks, axis=0),
+                                                patch, exact=cfg.codec.exact_streams)
+                        for k, s in enumerate(slots):
+                            st = active[s][2]
+                            lo, hi = offs[k], offs[k + 1]
+                            st.x_ge = np.concatenate([st.x_ge, dec[lo:hi]], axis=0)
+                            st.d.extend([1] * (hi - lo))
+                            st.bits += sum(bits[lo:hi])
+                            if st.x_ge.shape[0] >= st.job.num_frames_total:
+                                st.done = True
 
-            fallback: Dict[int, List[int]] = {}
-            for slot, (w, j, st) in enumerate(active):
-                idx = st.x_ge.shape[0]
-                # only frames inside the GOP are scored
-                gt = st.job.video[idx: min(idx + n_pred, st.job.num_frames_total)]
-                acc = self._decide(st, preds[slot, : gt.shape[0]], gt)
-                st.n_updates += 1
-                if acc.shape[0] > 0:
-                    st.x_ge = np.concatenate([st.x_ge, acc], axis=0)
-                    st.d.extend([0] * acc.shape[0])
-                else:
-                    fallback.setdefault(st.job.quality, []).append(slot)
-                if st.x_ge.shape[0] >= st.job.num_frames_total:
-                    st.done = True
-
-            # Fallback pairs, batched per quality. A chain at its video's end
-            # codes fewer than nc frames (the slice is clamped to the GOP), so
-            # each chain's offsets follow the lengths of the chunks.
-            for q, slots in fallback.items():
-                chunks = []
-                for s in slots:
-                    st = active[s][2]
-                    n = st.x_ge.shape[0]
-                    chunks.append(st.job.video[n: min(n + nc, st.job.num_frames_total)])
-                offs = np.concatenate([[0], np.cumsum([ch.shape[0] for ch in chunks])])
-                dec, bits = code_frames(self.coders[q], np.concatenate(chunks, axis=0), patch,
-                                        exact=cfg.codec.exact_streams)
-                for k, s in enumerate(slots):
-                    st = active[s][2]
-                    lo, hi = offs[k], offs[k + 1]
-                    st.x_ge = np.concatenate([st.x_ge, dec[lo:hi]], axis=0)
-                    st.d.extend([1] * (hi - lo))
-                    st.bits += sum(bits[lo:hi])
-                    if st.x_ge.shape[0] >= st.job.num_frames_total:
-                        st.done = True
-
-            still = []
-            for (w, j, st) in active:
-                if st.done:
-                    finish(w, j, st)
-                else:
-                    still.append((w, j, st))
-            active = still
+                still = []
+                for (w, j, st) in active:
+                    if st.done:
+                        finish(w, j, st)
+                    else:
+                        still.append((w, j, st))
+                active = still
 
         stats = {"sweeps": sweeps, "jobs_run": started, "jobs_skipped": skipped}
         return results, stats

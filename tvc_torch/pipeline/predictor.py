@@ -5,7 +5,9 @@ of ``model.version`` on the predictor's device: DDPM (100 steps plus the
 denoise step with the default config), DDIM, or F-PNDM, with the options of
 ``model.gamma`` and ``sampling.init_prev_t``. On the card every UNet call
 after the first at a batch size replays one captured CUDA graph
-(``samplers/graph.py``); on the CPU the sampler calls the UNet eagerly.
+(``samplers/graph.py``); on the CPU the sampler calls the UNet eagerly. A
+call of ``generate`` is a ``predictor.generate`` span of
+``utils/profiler.py``, each UNet call a ``predictor.unet`` span inside it.
 
 Randomness comes from an explicit ``torch.Generator`` (``draws``), or, for
 parity with the JAX package, from explicit ``x_init`` and ``noise`` tensors.
@@ -38,6 +40,7 @@ from tvc_torch.samplers.ancestral import (NoisePlan, active_steps, ddim_noise_pl
                                           ddpm_noise_plan)
 from tvc_torch.samplers.graph import GraphedEps
 from tvc_torch.samplers.pndm import fpndm_sampler, fpndm_unet_calls
+from tvc_torch.utils import profiler
 from tvc_torch.utils.fastinit import zeros_like
 
 
@@ -111,11 +114,10 @@ class FramePredictor:
         # one graph per input signature and per model: under f32:K both UNets
         # see the same float32 inputs
         on_card = self.device.type == "cuda"
-        self.graphs = GraphedEps(self.model)
-        self.eps_fn = self.graphs if on_card else self.model
-        self.eps_fn_hi = None
-        if self.model_hi is not None:
-            self.eps_fn_hi = GraphedEps(self.model_hi) if on_card else self.model_hi
+        self.graphs = GraphedEps(self.model, graphs=on_card)
+        self.eps_fn = self.graphs
+        self.eps_fn_hi = (GraphedEps(self.model_hi, graphs=on_card)
+                          if self.model_hi is not None else None)
 
     @classmethod
     def create(cls, cfg: Config, seed: int = 0, device="cuda",
@@ -232,17 +234,18 @@ class FramePredictor:
         cfg = self.cfg
         b = cond_frames.shape[0]
         size, c = cfg.data.image_size, cfg.data.channels
-        cond = data_transform(cfg, to_tensor(cond_frames, self.device, self.carry_dtype))
-        if x_init is None:
-            if generator is None:
-                raise ValueError("generate needs a generator or explicit x_init and noise")
-            x_init, noise = self.draws(generator, b)
-        x_init = x_init.to(device=self.device, dtype=self.carry_dtype)
-        if noise is not None:
-            noise = noise.to(device=self.device, dtype=torch.float32)
-        step_noise, warm_noise = self._split(noise)
-        with batched_conv_algorithms(b, self.device):
-            out = self._sample(x_init, cond, step_noise, warm_noise)
-        out = inverse_data_transform(cfg, out[-1].float())
-        # (B,H,W,C*F) -> (B,F,H,W,C): frames are channel-stacked [f0 c0..2, f1 ...]
-        return out.reshape(b, size, size, cfg.data.num_frames, c).permute(0, 3, 1, 2, 4)
+        with profiler.span("predictor.generate"):
+            cond = data_transform(cfg, to_tensor(cond_frames, self.device, self.carry_dtype))
+            if x_init is None:
+                if generator is None:
+                    raise ValueError("generate needs a generator or explicit x_init and noise")
+                x_init, noise = self.draws(generator, b)
+            x_init = x_init.to(device=self.device, dtype=self.carry_dtype)
+            if noise is not None:
+                noise = noise.to(device=self.device, dtype=torch.float32)
+            step_noise, warm_noise = self._split(noise)
+            with batched_conv_algorithms(b, self.device):
+                out = self._sample(x_init, cond, step_noise, warm_noise)
+            out = inverse_data_transform(cfg, out[-1].float())
+            # (B,H,W,C*F) -> (B,F,H,W,C): frames are channel-stacked [f0 c0..2, f1 ...]
+            return out.reshape(b, size, size, cfg.data.num_frames, c).permute(0, 3, 1, 2, 4)

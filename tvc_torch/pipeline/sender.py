@@ -17,6 +17,13 @@ Three GOP runners share these semantics: ``run_gop`` (numpy state, the
 reference loop), ``DeviceGOPRunner`` (the state stays on the device; one
 host read per update) and the whole-GOP sender of ``fused_gop.py``.
 ``rate_sweep`` walks (quality x threshold) points through any of them.
+
+``run_gop`` and ``DeviceGOPRunner`` record spans of ``utils/profiler.py``
+(GOP id: the GOP's seed): ``runner.gop``, each ``runner.update`` and
+``runner.keyframe`` (a coding event), and ``DeviceGOPRunner``'s
+``runner.assemble`` (the final fetch); their seconds are ``GOPResult``'s
+``wall_time``, ``update_s`` and ``keyframe_s``. Score reads count as
+``reads.score``, the runners' other fetches as ``reads.runner``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from tvc_torch.metrics.pixel import psnr, psnr_torch
 from tvc_torch.models.codec import container
 from tvc_torch.pipeline.keyframe import code_frames_device, code_frames_enc
 from tvc_torch.pipeline.predictor import FramePredictor
+from tvc_torch.utils import profiler
 
 # update index -> (x_init, noise) of that update's prediction (see FramePredictor.generate)
 NoiseSource = Callable[[int], Tuple[torch.Tensor, torch.Tensor]]
@@ -82,7 +90,7 @@ class Sender:
             ok = np.asarray([psnr(pred[0, j], gt[0, j]) >= self.threshold for j in range(f)])
         else:
             # the reference feeds [0,1] frames to LPIPS un-rescaled
-            d = self.lpips(pred[0], gt[0]).cpu().numpy()
+            d = profiler.fetch(self.lpips(pred[0], gt[0]), "score").numpy()
             ok = d <= self.threshold
         n_acc = int(np.argmin(ok)) if not ok.all() else f
         if f > 0 and not ok[0]:
@@ -101,7 +109,7 @@ class Sender:
         frames_gt = x_gt[:, idx: idx + self.cfg.data.num_frames]
         cond = stack_frames(x_ge[:, -self.cfg.data.num_frames_cond:])
         pred = self.predictor.generate(cond, generator=generator, x_init=x_init, noise=noise)
-        pred = pred.cpu().numpy()[:, : frames_gt.shape[1]]
+        pred = profiler.fetch(pred, "runner").numpy()[:, : frames_gt.shape[1]]
         new_d, new_ge = self.decide(pred, frames_gt)
         return np.concatenate([d, new_d], axis=1), np.concatenate([x_ge, new_ge], axis=1)
 
@@ -143,46 +151,48 @@ def run_gop(sender: Sender, coder, video_gt: np.ndarray, seed: int, num_frames_t
     coder."""
     exact = sender.cfg.codec.exact_streams
     _refuse_simulated_streams(keep_streams, exact)
-    t0 = time.perf_counter()
-    video_gt = video_gt[:num_frames_total]
-    h, w = video_gt.shape[1], video_gt.shape[2]
-    nc = sender.cfg.data.num_frames_cond
-    containers: List[bytes] = []
-    keyframe_s: List[float] = []
+    with profiler.timed("runner.gop", gop=seed) as gop_span:
+        video_gt = video_gt[:num_frames_total]
+        h, w = video_gt.shape[1], video_gt.shape[2]
+        nc = sender.cfg.data.num_frames_cond
+        containers: List[bytes] = []
+        keyframe_s: List[float] = []
 
-    def code(frames):
-        tk = time.perf_counter()
-        dec, bits, enc = code_frames_enc(coder, frames, patch, exact)
-        if keep_streams:
-            containers.append(container.serialize(enc, entropy_backend=coder.entropy_backend))
-        keyframe_s.append(time.perf_counter() - tk)
-        return dec, bits
+        def code(frames):
+            with profiler.timed("runner.keyframe", gop=seed) as span:
+                dec, bits, enc = code_frames_enc(coder, frames, patch, exact)
+                if keep_streams:
+                    containers.append(container.serialize(
+                        enc, entropy_backend=coder.entropy_backend))
+            keyframe_s.append(span.seconds)
+            return dec, bits
 
-    dec0, bits0 = code(video_gt[:nc])
-    x_ge = dec0[None]
-    x_gt = video_gt[None]
-    d = np.ones((1, nc), dtype=np.int64)
-    bits_list: List[int] = list(bits0)
-    accepts: List[int] = []
-    update_s: List[float] = []
+        dec0, bits0 = code(video_gt[:nc])
+        x_ge = dec0[None]
+        x_gt = video_gt[None]
+        d = np.ones((1, nc), dtype=np.int64)
+        bits_list: List[int] = list(bits0)
+        accepts: List[int] = []
+        update_s: List[float] = []
 
-    while x_ge.shape[1] < num_frames_total:
-        tu = time.perf_counter()
-        gen, x_init, eps = update_draws(seed, len(accepts), sender.predictor.device, noise)
-        prev_len = x_ge.shape[1]
-        d, x_ge = sender.update(gen, x_gt, x_ge, d, x_init=x_init, noise=eps)
-        accepts.append(int(x_ge.shape[1] - prev_len))
-        update_s.append(time.perf_counter() - tu)
-        if x_ge.shape[1] == prev_len:  # prediction rejected: code the next pair
-            dec, bits = code(video_gt[prev_len: prev_len + nc])
-            bits_list.extend(bits)
-            x_ge = np.concatenate([x_ge, dec[None]], axis=1)
-            d = np.concatenate([d, np.ones((1, dec.shape[0]), dtype=np.int64)], axis=1)
+        while x_ge.shape[1] < num_frames_total:
+            with profiler.timed("runner.update", gop=seed) as span:
+                gen, x_init, eps = update_draws(seed, len(accepts), sender.predictor.device,
+                                                noise)
+                prev_len = x_ge.shape[1]
+                d, x_ge = sender.update(gen, x_gt, x_ge, d, x_init=x_init, noise=eps)
+                accepts.append(int(x_ge.shape[1] - prev_len))
+            update_s.append(span.seconds)
+            if x_ge.shape[1] == prev_len:  # prediction rejected: code the next pair
+                dec, bits = code(video_gt[prev_len: prev_len + nc])
+                bits_list.extend(bits)
+                x_ge = np.concatenate([x_ge, dec[None]], axis=1)
+                d = np.concatenate([d, np.ones((1, dec.shape[0]), dtype=np.int64)], axis=1)
 
     bits = int(sum(bits_list))
     return GOPResult(d=d[:, :num_frames_total], x_ge=x_ge[:, :num_frames_total], bits=bits,
                      bpp=bits / h / w / num_frames_total, n_updates=len(accepts),
-                     wall_time=time.perf_counter() - t0,
+                     wall_time=gop_span.seconds,
                      containers=containers if keep_streams else None, accepts=accepts,
                      keyframe_s=keyframe_s, update_s=update_s)
 
@@ -322,7 +332,6 @@ class DeviceGOPRunner:
         seconds: ``cycle_fetch`` (update start to scores on the host, per
         update), ``keyframes`` (per coding event), ``assemble`` (the final
         fetch). ``keep_streams`` serializes each coding event's container."""
-        t0 = time.perf_counter()
         cfg, T = self.cfg, self.T
         exact = cfg.codec.exact_streams
         _refuse_simulated_streams(keep_streams, exact)
@@ -340,64 +349,68 @@ class DeviceGOPRunner:
             return frames.astype(np.float32) / 255.0 if uint8 else np.asarray(frames, np.float32)
 
         def code(a, b):
-            tk = time.perf_counter()
-            dec, bits, enc = code_frames_device(coder, gt_slice(a, b), patch, exact,
-                                                return_enc=True)
-            if keep_streams:
-                containers.append(container.serialize(enc, entropy_backend=coder.entropy_backend))
-            keyframe_s.append(time.perf_counter() - tk)
+            with profiler.timed("runner.keyframe", gop=seed) as span:
+                dec, bits, enc = code_frames_device(coder, gt_slice(a, b), patch, exact,
+                                                    return_enc=True)
+                if keep_streams:
+                    containers.append(container.serialize(
+                        enc, entropy_backend=coder.entropy_backend))
+            keyframe_s.append(span.seconds)
             return dec[None].to(dev), bits
 
-        chunk, bits0 = code(0, nc)  # dispatched before the ground truth's upload
-        if uint8:
-            # a 0-dim device divisor: an exact division, as numpy's on the host
-            gt_dev = (torch.as_tensor(video_gt[:T]).to(dev).float()
-                      / torch.full((), 255.0, device=dev))
-        else:
-            gt_dev = torch.as_tensor(np.asarray(video_gt[:T], np.float32)).to(dev)
-        chunks = [chunk]
-        cond2 = chunk[:, -nc:]
-        d: List[int] = [1] * nc
-        bits_list: List[int] = list(bits0)
-        accepts: List[int] = []
-        update_s: List[float] = []
-        count = nc
-        while count < T:
-            t_cyc = time.perf_counter()
-            gen, x_init, eps = update_draws(seed, len(accepts), dev, noise)
-            k = min(n_pred, T - count)
-            cond = cond2.permute(0, 2, 3, 1, 4).reshape(1, h, w, nc * c).contiguous()
-            pred = self.predictor.generate(cond, generator=gen, x_init=x_init, noise=eps)
-            scores = self._scores(pred[0, :k].contiguous(), gt_dev[count: count + k])
-            s = scores.cpu().numpy()  # the update's one read
-            fetch_s.append(time.perf_counter() - t_cyc)
-            ok = (s >= threshold) if self.use_psnr else (s <= threshold)
-            n_acc = k if ok.all() else int(np.argmin(ok))
-            u = len(accepts)
-            if forced_accepts is not None and u < len(forced_accepts) and forced_accepts[u] >= 0:
-                n_acc = min(int(forced_accepts[u]), k)
-            accepts.append(n_acc)
-            if n_acc == 0:
-                chunk, bits = code(count, count + nc)
-                bits_list.extend(bits)
-                d.extend([1] * chunk.shape[1])
+        with profiler.timed("runner.gop", gop=seed) as gop_span:
+            chunk, bits0 = code(0, nc)  # dispatched before the ground truth's upload
+            if uint8:
+                # a 0-dim device divisor: an exact division, as numpy's on the host
+                gt_dev = (profiler.upload(video_gt[:T], dev).float()
+                          / torch.full((), 255.0, device=dev))
             else:
-                chunk = pred[:, :n_acc]
-                d.extend([0] * n_acc)
-            chunks.append(chunk)
-            count += chunk.shape[1]
-            cond2 = torch.cat([cond2, chunk], dim=1)[:, -nc:]
-            update_s.append(time.perf_counter() - t_cyc)
+                gt_dev = profiler.upload(np.asarray(video_gt[:T], np.float32), dev)
+            chunks = [chunk]
+            cond2 = chunk[:, -nc:]
+            d: List[int] = [1] * nc
+            bits_list: List[int] = list(bits0)
+            accepts: List[int] = []
+            update_s: List[float] = []
+            count = nc
+            while count < T:
+                with profiler.timed("runner.update", gop=seed) as span:
+                    gen, x_init, eps = update_draws(seed, len(accepts), dev, noise)
+                    k = min(n_pred, T - count)
+                    cond = cond2.permute(0, 2, 3, 1, 4).reshape(1, h, w, nc * c).contiguous()
+                    pred = self.predictor.generate(cond, generator=gen, x_init=x_init,
+                                                   noise=eps)
+                    scores = self._scores(pred[0, :k].contiguous(), gt_dev[count: count + k])
+                    s = profiler.fetch(scores, "score").numpy()  # the update's one read
+                    fetch_s.append((time.perf_counter_ns() - span.t0) / 1e9)
+                    ok = (s >= threshold) if self.use_psnr else (s <= threshold)
+                    n_acc = k if ok.all() else int(np.argmin(ok))
+                    u = len(accepts)
+                    if (forced_accepts is not None and u < len(forced_accepts)
+                            and forced_accepts[u] >= 0):
+                        n_acc = min(int(forced_accepts[u]), k)
+                    accepts.append(n_acc)
+                    if n_acc == 0:
+                        chunk, bits = code(count, count + nc)
+                        bits_list.extend(bits)
+                        d.extend([1] * chunk.shape[1])
+                    else:
+                        chunk = pred[:, :n_acc]
+                        d.extend([0] * n_acc)
+                    chunks.append(chunk)
+                    count += chunk.shape[1]
+                    cond2 = torch.cat([cond2, chunk], dim=1)[:, -nc:]
+                update_s.append(span.seconds)
 
-        t_asm = time.perf_counter()
-        x_ge = torch.cat(chunks, dim=1)[:, :T].cpu().numpy()
+            with profiler.timed("runner.assemble", gop=seed) as asm:
+                x_ge = profiler.fetch(torch.cat(chunks, dim=1)[:, :T], "runner").numpy()
         if timings is not None:
             timings.setdefault("keyframes", []).extend(keyframe_s)
             timings.setdefault("cycle_fetch", []).extend(fetch_s)
-            timings["assemble"] = time.perf_counter() - t_asm
+            timings["assemble"] = asm.seconds
         bits = int(sum(bits_list))
         return GOPResult(d=np.asarray(d, np.int64)[None][:, :T], x_ge=x_ge, bits=bits,
                          bpp=bits / h / w / T, n_updates=len(accepts),
-                         wall_time=time.perf_counter() - t0,
+                         wall_time=gop_span.seconds,
                          containers=containers if keep_streams else None, accepts=accepts,
                          keyframe_s=keyframe_s, update_s=update_s)

@@ -23,19 +23,24 @@ inputs, so its output is the eager output byte for byte (the card-only
 tests and ``chip_smoke.py`` hold it to that).
 
 A failed capture or replay raises; nothing falls back to the eager call.
-The caller decides the device: a frame predictor on the CPU calls its UNet
-directly.
+The caller decides the device: a frame predictor on the CPU passes
+``graphs=False``, and every call runs ``eps_fn`` eagerly.
+
+Each call is a ``predictor.unet`` span of ``utils/profiler.py`` (the copy-in
+and the replay, or the eager call, or the capture with its replay; the
+capture alone is a ``predictor.capture`` span inside it), and counts
+``graph.replays``, ``graph.captures`` or ``unet.eager_calls``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Dict, Hashable, Optional, Set
 
 import torch
 
 from tvc_torch.ops import attention
+from tvc_torch.utils import profiler
 
 
 @dataclasses.dataclass
@@ -71,40 +76,48 @@ def _signature(t: Optional[torch.Tensor]):
 class GraphedEps:
     """``eps_fn`` with one CUDA graph per input signature; see the module's docstring."""
 
-    def __init__(self, eps_fn: Callable[..., torch.Tensor]):
+    def __init__(self, eps_fn: Callable[..., torch.Tensor], graphs: bool = True):
         self.eps_fn = eps_fn
+        self.graphs = graphs
         self.entries: Dict[Hashable, _Entry] = {}
         self.warm: Set[Hashable] = set()
 
     def __call__(self, x: torch.Tensor, labels: torch.Tensor,
                  cond: Optional[torch.Tensor] = None) -> torch.Tensor:
-        inputs = {"x": x, "labels": labels, "cond": cond}
-        key = tuple(_signature(t) for t in inputs.values())
-        if key not in self.warm:
-            out = self.eps_fn(x, labels, cond)
-            self.warm.add(key)
-            return out
-        entry = self.entries.get(key)
-        if entry is None:
-            entry = self._capture(key, inputs)
-        for name, buf in entry.inputs.items():
-            buf.copy_(inputs[name])
-        entry.graph.replay()  # raises on a failed replay
-        attention.count_launches(entry.attention_launches, entry.kernel_launches)
-        entry.replays += 1
-        return entry.output.clone()
+        with profiler.span("predictor.unet"):
+            if not self.graphs:
+                profiler.count("unet.eager_calls")
+                return self.eps_fn(x, labels, cond)
+            inputs = {"x": x, "labels": labels, "cond": cond}
+            key = tuple(_signature(t) for t in inputs.values())
+            if key not in self.warm:
+                profiler.count("unet.eager_calls")
+                out = self.eps_fn(x, labels, cond)
+                self.warm.add(key)
+                return out
+            entry = self.entries.get(key)
+            if entry is None:
+                entry = self._capture(key, inputs)
+            for name, buf in entry.inputs.items():
+                buf.copy_(inputs[name])
+            entry.graph.replay()  # raises on a failed replay
+            profiler.count("graph.replays")
+            attention.count_launches(entry.attention_launches, entry.kernel_launches)
+            entry.replays += 1
+            return entry.output.clone()
 
     def _capture(self, key, inputs) -> _Entry:
         static = {k: torch.empty_like(v) for k, v in inputs.items() if v is not None}
-        t0 = time.perf_counter()
         c0 = dict(attention.kernel_captured)
-        try:
-            graph, out, launches, pool = capture(
-                lambda x, labels, cond=None: self.eps_fn(x, labels, cond), static)
-        except Exception as e:
-            raise RuntimeError(f"CUDA graph capture of the UNet call {key} failed") from e
+        with profiler.timed("predictor.capture") as timer:
+            profiler.count("graph.captures")
+            try:
+                graph, out, launches, pool = capture(
+                    lambda x, labels, cond=None: self.eps_fn(x, labels, cond), static)
+            except Exception as e:
+                raise RuntimeError(f"CUDA graph capture of the UNet call {key} failed") from e
         by_kernel = {k: n - c0[k] for k, n in attention.kernel_captured.items()}
-        entry = _Entry(graph, static, out, launches, by_kernel, time.perf_counter() - t0, pool)
+        entry = _Entry(graph, static, out, launches, by_kernel, timer.seconds, pool)
         self.entries[key] = entry
         return entry
 
