@@ -26,7 +26,12 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    with its plan (query tile, key splits, blocks), registers and spills, its
    time, the plain version's, ``scaled_dot_product_attention``'s as a
    yardstick and the bound of the card. Times are device times of a CUDA graph
-   of many launches (``eager_ms``: the same launches from the host);
+   of many launches (``eager_ms``: the same launches from the host); then the
+   GroupNorm kernel ``groupnorm.cu`` at every GroupNorm shape of the flagship
+   UNet at B = 1, in float32 and bfloat16, against the plain composition at
+   the card tests' tolerances (contiguous and channels-last, two launches
+   bit-identical), with its time, the plain composition's, ``F.group_norm``
+   + ``F.silu``'s and the bound (x read once, y written once);
 4. the full-width UNet (default ``Config()``, 262.1M parameters, seeded random
    weights): one forward through the kernel against one through the plain
    attention on the card, its time as a replayed CUDA graph (``unet_ms``;
@@ -187,7 +192,9 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 Every path above (7, 8, 10-19) must launch the attention kernel 1010 times per
 DDPM or DDIM update or lockstep sweep (F-PNDM 1090, the warm start 960, the
 3-D nets' 11-call updates 110), 10 per train step; the ``kernels`` line sums
-their launches.
+their launches. Phases 4, 7, 8, 11 and 17's bf16 UNet must launch the
+GroupNorm kernel 81 times a UNet call (8181 an update or sweep); the
+``kernels`` line's ``groupnorm`` entry sums those.
 
 The last lines are the ``kernels`` JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -197,6 +204,8 @@ non-zero and prints no result; nothing runs on the CPU.
                                     # and the bf16 kernel with P rounded once
     python3 chip_smoke.py --kernels-only [--sweep]   # phases 1-3, no result
     python3 chip_smoke.py --phase19-only [--zoo-train-largest]   # phases 1-3 and 19, no result
+    python3 chip_smoke.py --groupnorm-only   # phases 1-2 and the GroupNorm kernel at B = 1
+                                             # and 8, in the full-width UNet too; no result
 """
 
 from __future__ import annotations
@@ -229,6 +238,9 @@ ZOO = (("spade", {"model.spade": True}, 347.2),
 ZOO_3D_SUBSAMPLE = 10  # the 3-D nets' updates: 10 DDPM steps and the denoise, cut for time
 ZOO_GOP = ("spade", "unetmorepseudo3d")  # sent, and received by a fresh process
 ZOO_GOP_FRAMES = 7  # the keyframe pair and one update of 5 frames, or more after a fallback
+# GroupNorm kernel launches of one flagship UNet call (``ncsnpp.groupnorm_shapes``:
+# 70 ``GetActNorm`` chains, 10 attention-block norms and the final ``actnorm``)
+GN_PER_CALL = 81
 # the 3-D nets fold their frames into the spatial attention's batch: b = 7
 # (n_frames) on the way down and in the middle, 5 (num_frames) on the way up;
 # launches per UNet call at each level
@@ -353,6 +365,21 @@ def read_launches(attn) -> int:
     for name, n in attn.kernel_launches.items():
         KERNEL_LAUNCHES[name] = KERNEL_LAUNCHES.get(name, 0) + n
     return attn.launches
+
+
+# the GroupNorm kernel's launches on the paths checked by check_groupnorm_launches
+GROUPNORM_LAUNCHES = 0
+
+
+def check_groupnorm_launches(n: int, calls: int, what: str) -> int:
+    """Fail unless ``n``, the GroupNorm launches of the path just driven (the
+    count was set to 0 right before it), is GN_PER_CALL for each of its
+    ``calls`` UNet calls; adds it to GROUPNORM_LAUNCHES."""
+    global GROUPNORM_LAUNCHES
+    if n != GN_PER_CALL * calls:
+        fail(f"{what} launched the GroupNorm kernel {n} times, not {GN_PER_CALL} x {calls}")
+    GROUPNORM_LAUNCHES += n
+    return n
 
 
 def process_launches(text) -> int:
@@ -529,6 +556,8 @@ def phase_unet(torch, attn, layers, predictor):
     """Phase 4: the full-width forward through the kernel against the plain attention."""
     from unittest import mock
 
+    from tvc_torch.ops import groupnorm
+
     cfg = predictor.cfg
     model = predictor.model
     n_params = sum(p.numel() for p in model.parameters())
@@ -545,9 +574,11 @@ def phase_unet(torch, attn, layers, predictor):
     t = torch.tensor([500], device="cuda")
     with torch.no_grad():
         before = attn.launches
+        groupnorm.reset_launches()
         out = model(x, t, cond)
         if attn.launches - before != 10:
             fail(f"the UNet forward launched {attn.launches - before} attention kernels, not 10")
+        check_groupnorm_launches(groupnorm.launches, 1, "the UNet forward")
         with mock.patch.object(layers, "attention", attn.attention_plain):
             ref = model(x, t, cond)
         torch.cuda.synchronize()
@@ -711,6 +742,7 @@ def phase_codec(torch, model, video):
 def phase_gop(torch, attn, sender, coder, video, config_mods):
     """Phase 7, the main path: a 30-frame GOP, its payload, and a receiver in a
     fresh process, which is given ``config_mods`` (the sender's config)."""
+    from tvc_torch.ops import groupnorm
     from tvc_torch.pipeline.sender import run_gop
 
     cfg = sender.cfg
@@ -727,9 +759,11 @@ def phase_gop(torch, attn, sender, coder, video, config_mods):
     torch.cuda.reset_peak_memory_stats()
     try:
         attn.reset_launches()  # the main path starts here
+        groupnorm.reset_launches()
         gop, wall = timed(torch, lambda: run_gop(sender, coder, video[0], cfg.seed, GOP_FRAMES,
                                                   cfg.codec.patch, keep_streams=True))
         launches = read_launches(attn)  # read right after the main path
+        gn_launches = groupnorm.launches
     finally:
         sender.lpips = lpips
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -740,12 +774,13 @@ def phase_gop(torch, attn, sender, coder, video, config_mods):
            "container_bytes": [len(c) for c in gop.containers], "lpips": scores,
            "threshold": sender.threshold,
            "threshold_margin": float(np.min(np.abs(np.concatenate(scores) - sender.threshold))),
-           "attention_launches": launches,
+           "attention_launches": launches, "groupnorm_launches": gn_launches,
            "peak_mem_gb": peak}
     log("gop_sender " + json.dumps(row))
     if launches != per_update * gop.n_updates:
         fail(f"the GOP launched the attention kernel {launches} times, not "
              f"{per_update} x {gop.n_updates}")
+    check_groupnorm_launches(gn_launches, sender.predictor.n_steps * gop.n_updates, "the GOP")
     if (len(d) != GOP_FRAMES or len(gop.containers) != 1 + gop.accepts.count(0)
             or d.count(0) != sum(gop.accepts) or len(gop.accepts) != gop.n_updates):
         fail("d, accepts and the containers disagree")
@@ -810,6 +845,7 @@ def phase_device_gop(torch, attn, sender, coder, video, ref):
     """Phase 8: phase 7's GOP through DeviceGOPRunner; ``ref`` is phase 7's GOPResult."""
     import warnings
 
+    from tvc_torch.ops import groupnorm
     from tvc_torch.pipeline.sender import DeviceGOPRunner
 
     cfg = sender.cfg
@@ -835,11 +871,13 @@ def phase_device_gop(torch, attn, sender, coder, video, ref):
         torch.cuda.set_sync_debug_mode("warn")
         try:
             attn.reset_launches()  # the path starts here
+            groupnorm.reset_launches()
             t0 = time.perf_counter()
             gop = runner.run(coder, video[0], cfg.seed, sender.threshold, cfg.codec.patch,
                              timings=timings, keep_streams=True)
             wall = time.perf_counter() - t0
             launches = read_launches(attn)  # read right after the path
+            gn_launches = groupnorm.launches
         finally:
             torch.cuda.set_sync_debug_mode(0)
             del coder.compress
@@ -855,7 +893,8 @@ def phase_device_gop(torch, attn, sender, coder, video, ref):
            "assemble_s": timings["assemble"], "sync_calls": syncs,
            "sync_calls_in_keyframe_coding": sum(kf_syncs),
            "sync_calls_outside_keyframes_per_update": outside / gop.n_updates,
-           "attention_launches": launches, "equal_to_run_gop": same,
+           "attention_launches": launches, "groupnorm_launches": gn_launches,
+           "equal_to_run_gop": same,
            "uint8_division_exact": bool(np.array_equal(dev_div.numpy(),
                                                        u8.astype(np.float32) / 255.0))}
     log("device_gop " + json.dumps(row))
@@ -864,6 +903,8 @@ def phase_device_gop(torch, attn, sender, coder, video, ref):
     if launches != per_update * gop.n_updates:
         fail(f"DeviceGOPRunner launched {launches} attention kernels, not "
              f"{per_update} x {gop.n_updates}")
+    check_groupnorm_launches(gn_launches, sender.predictor.n_steps * gop.n_updates,
+                             "DeviceGOPRunner")
     if not row["uint8_division_exact"]:
         fail("the card's uint8 -> [0, 1] conversion differs from numpy's")
     return row
@@ -970,6 +1011,7 @@ FUSED_TOL = 1e-4
 def phase_batched(torch, attn, predictor, coder, lpips):
     """Phase 11: BatchedGOPRunner at batch_size 8 on 8 jobs, and its rerun."""
     from tvc_torch.core.runtime import batched_conv_algorithms
+    from tvc_torch.ops import groupnorm
     from tvc_torch.pipeline.batched import BatchedGOPRunner, GOPJob
 
     cfg = predictor.cfg
@@ -990,9 +1032,11 @@ def phase_batched(torch, attn, predictor, coder, lpips):
     try:
         torch.cuda.reset_peak_memory_stats()
         attn.reset_launches()  # the path starts here
+        groupnorm.reset_launches()
         (results, stats), wall = timed(torch, lambda: runner.run_walks(walks, cfg.seed,
                                                                        cfg.codec.patch))
         launches = read_launches(attn)
+        gn_launches = groupnorm.launches
         peak = torch.cuda.max_memory_allocated() / 1e9  # cuDNN's timing workspaces too
         torch.cuda.reset_peak_memory_stats()
         again, stats2 = runner.run_walks(walks, cfg.seed, cfg.codec.patch)
@@ -1012,6 +1056,7 @@ def phase_batched(torch, attn, predictor, coder, lpips):
     row = {"wall_s": wall, **stats, "sweep_generate_s": sweep_s[: stats["sweeps"]],
            "wall_per_sweep_s": wall / stats["sweeps"], "unet_ms_b8": unet8,
            "unet_ms_b8_per_chain": unet8 / 8, "attention_launches": launches,
+           "groupnorm_launches": gn_launches,
            "peak_mem_gb_first_run": peak, "peak_mem_gb_rerun": peak_rerun,
            "n_updates": [w[0].n_updates for w in results],
            "bpp": [w[0].bpp for w in results], "rerun_identical": same}
@@ -1020,6 +1065,8 @@ def phase_batched(torch, attn, predictor, coder, lpips):
         fail("BatchedGOPRunner's rerun is not bit-identical")
     if launches != per_update * stats["sweeps"]:
         fail(f"BatchedGOPRunner launched {launches}, not {per_update} x {stats['sweeps']}")
+    check_groupnorm_launches(gn_launches, predictor.n_steps * stats["sweeps"],
+                             "BatchedGOPRunner")
     if any(w[0].x_ge.shape != (1, BATCH_FRAMES, 128, 128, 3) or not np.isfinite(w[0].x_ge).all()
            for w in results):
         fail(f"BatchedGOPRunner's frames are not {BATCH_FRAMES} finite frames")
@@ -2048,6 +2095,227 @@ def phase_train_cli(torch, tmp, video):
 
 
 TRAIN_THEN_PREDICT = "--train-then-predict"  # phase 16e's fresh process
+GROUPNORM_ONLY = "--groupnorm-only"  # phase 1 and the GroupNorm kernel alone; prints no result
+
+
+def groupnorm_error(torch, got, want):
+    """(max |got - want|, share of elements that differ, within tolerance) of
+    the GroupNorm kernel against the plain composition, at the card tests'
+    tolerances (``tests/test_torch_gpu.py``): the two differ only in the order
+    of the statistics' sums, so in float32 max |got - want| <= 1e-4 x max(1,
+    max |want|); in bf16 that flips a value lying at a rounding boundary by
+    one bf16 ulp, so at most 1% of the elements may differ, none by more than
+    2^-6 x max(1, max |want|)."""
+    scale = max(1.0, want.float().abs().max().item())
+    diff = (got.float() - want.float()).abs()
+    err, share = diff.max().item(), (diff > 0).float().mean().item()
+    if want.dtype == torch.float32:
+        return err, share, err <= 1e-4 * scale
+    return err, share, err <= 2.0 ** -6 * scale and share <= 0.01
+
+
+def groupnorm_rows(torch, groupnorm, shapes, dtype, b):
+    """The GroupNorm kernel at each distinct (channels, resolution, modulated)
+    shape of one flagship UNet call at batch b, contiguous and channels-last,
+    held to ``groupnorm_error``'s tolerance and to bit-identical reruns: max
+    |kernel - plain| (and the share of elements that differ), ms as a replayed
+    graph against the bound (x read once, y written once at HBM_BPS), the
+    plain composition and the library yardstick (F.group_norm then F.silu,
+    one call each, in the dtype)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(b)
+    rows = []
+    for c, r, emb in sorted(set(shapes)):
+        x = (torch.randn((b, c, r, r), generator=g, device="cuda") * 2 + 0.3).to(dtype)
+        w = bias = scale = shift = None
+        if emb:
+            scale, shift = (torch.randn((b, 2 * c), generator=g, device="cuda") * 0.3).to(
+                dtype).chunk(2, dim=1)
+        else:
+            w = 1 + 0.3 * torch.randn(c, generator=g, device="cuda")
+            bias = 0.3 * torch.randn(c, generator=g, device="cuda")
+        args = (x, 32, 1e-5, w, bias, scale, shift, True, dtype)
+        xcl = x.contiguous(memory_format=torch.channels_last)
+        args_cl = (xcl,) + args[1:]
+        with torch.no_grad():
+            out = groupnorm.group_norm_act(*args)
+            ref = groupnorm.group_norm_plain(*args)
+            again = groupnorm.group_norm_act(*args)
+            out_cl = groupnorm.group_norm_act(*args_cl)
+            torch.cuda.synchronize()
+            err, share, ok = groupnorm_error(torch, out, ref)
+            err_cl, share_cl, ok_cl = groupnorm_error(torch, out_cl, ref)
+            if not (ok and ok_cl):
+                fail(f"groupnorm {c}x{r} B={b} {dtype}: kernel against plain max |diff| {err} "
+                     f"(channels-last {err_cl}), differing share {share} ({share_cl}), "
+                     f"max |plain| {ref.float().abs().max().item()}")
+            if not torch.equal(out, again):
+                fail(f"groupnorm {c}x{r} B={b} {dtype}: two launches differ")
+            iters = 20 if b * c * r * r >= 1 << 22 else 100
+            ms = graph_ms(torch, lambda: groupnorm.group_norm_act(*args), iters)
+            ms_cl = graph_ms(torch, lambda: groupnorm.group_norm_act(*args_cl), iters)
+            plain_ms = graph_ms(torch, lambda: groupnorm.group_norm_plain(*args), iters)
+            lib_ms = graph_ms(torch, lambda: F.silu(F.group_norm(x, 32, None if w is None else
+                                                                 w.to(dtype), None if bias is None
+                                                                 else bias.to(dtype), 1e-5)),
+                              iters)
+        plan = groupnorm.groupnorm_plan(b, c, r * r, 32, dtype)
+        bound = 2.0 * x.numel() * x.element_size() / HBM_BPS * 1e3
+        rows.append({"C": c, "res": r, "emb": emb, "B": b,
+                     "dtype": str(dtype).replace("torch.", ""),
+                     "per_unet_call": shapes.count((c, r, emb)), "splits": plan.splits,
+                     "blocks": plan.blocks, "smem": plan.smem,
+                     "max_abs_err": err, "max_abs_plain": ref.float().abs().max().item(),
+                     "differ_share": share, "ms": ms, "max_abs_err_cl": err_cl,
+                     "differ_share_cl": share_cl, "ms_channels_last": ms_cl,
+                     "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+                     "share_of_bound": bound / ms})
+        log("groupnorm_shape " + json.dumps(rows[-1]))
+    return rows
+
+
+def groupnorm_per_call(rows):
+    """``groupnorm_rows`` summed over one UNet call's GroupNorms: times and
+    bounds, the largest error and the launches."""
+    tot = {k: sum(r[k] * r["per_unet_call"] for r in rows)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    tot["bound_by"] = "bytes"
+    tot["max_abs_err"] = max(max(r["max_abs_err"], r["max_abs_err_cl"]) for r in rows)
+    tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
+    tot["launches_per_unet_call"] = sum(r["per_unet_call"] for r in rows)
+    return tot
+
+
+# max |kernel - plain| / max |plain| of a UNet call with the GroupNorm kernel
+# against one with the plain composition, as the card test
+# ``test_unet_call_launches_every_groupnorm_once`` allows: the order of the
+# statistics' sums, carried through 81 norms (in bf16 as flipped roundings)
+GN_UNET_REL_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+def unet_groupnorm_calls(torch, groupnorm, layers):
+    """The full-width UNet (default init on the card) with the kernel against
+    the plain composition: float32 at B = 1 and bf16 at B = 8, within
+    GN_UNET_REL_TOL and with GN_PER_CALL launches a call, ms per call as a
+    replayed graph, where the GroupNorm inputs lie (contiguous or
+    channels-last), and each call's longest kernels."""
+    from unittest import mock
+
+    from tvc_torch.core.config import Config
+    from tvc_torch.models.diffusion.ncsnpp import UNetMoreDDPM
+
+    cfg = Config()
+    model = UNetMoreDDPM(cfg, device="cuda").eval()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    size, ch = cfg.data.image_size, cfg.data.channels
+    out = {}
+    layouts = {}
+    real = layers.group_norm_act
+
+    def census(x, *a, **k):
+        key = ("contiguous" if x.is_contiguous() else "channels_last"
+               if x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last) else "other")
+        layouts[key] = layouts.get(key, 0) + 1
+        by_shape = f"{key} {x.shape[1]}x{x.shape[-1]}"
+        layouts[by_shape] = layouts.get(by_shape, 0) + 1
+        return real(x, *a, **k)
+
+    for dtype, b in ((torch.float32, 1), (torch.bfloat16, 8)):
+        # bf16 on bf16-stored weights, as the predictor stores them
+        net = model if dtype == torch.float32 else model.with_dtype(
+            dtype, {k: v.to(dtype) if v.dtype == torch.float32 else v
+                    for k, v in model.state_dict().items()})
+        x = torch.randn((b, size, size, ch * cfg.data.num_frames), generator=g, device="cuda")
+        cond = torch.randn((b, size, size, ch * cfg.data.num_frames_cond), generator=g,
+                           device="cuda")
+        t = torch.full((b,), 500, device="cuda")
+        xs, cs = x.to(dtype), cond.to(dtype)
+        tag = f"{str(dtype).replace('torch.', '')}_B{b}"
+        with torch.no_grad():
+            groupnorm.reset_launches()
+            layouts.clear()
+            with mock.patch.object(layers, "group_norm_act", census):
+                got = net(xs, t, cs)
+            launches = groupnorm.launches
+            with mock.patch.object(layers, "group_norm_act", groupnorm.group_norm_plain):
+                ref = net(xs, t, cs)
+                plain_ms = graph_ms(torch, lambda: net(xs, t, cs), 3)
+            kernel_ms = graph_ms(torch, lambda: net(xs, t, cs), 3)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+        out[tag] = {"launches_a_call": launches, "layouts": dict(layouts),
+                    "max_abs_err": err, "max_abs_plain": scale, "kernel_ms": kernel_ms,
+                    "plain_ms": plain_ms}
+        log(f"groupnorm unet {tag}: " + json.dumps(out[tag]))
+        if launches != GN_PER_CALL:
+            fail(f"the UNet {tag} launched the GroupNorm kernel {launches} times, not "
+                 f"{GN_PER_CALL}")
+        tol = GN_UNET_REL_TOL[str(dtype).replace("torch.", "")]
+        if not (torch.isfinite(got).all() and scale > 1e-2 and err <= tol * scale):
+            fail(f"the UNet {tag} through the GroupNorm kernel disagrees with the plain "
+                 f"composition: max |diff| {err}, max |plain| {scale} (tol {tol} x max |plain|)")
+        with torch.no_grad():
+            for line in profile_unet(torch, lambda: net(xs, t, cs)):
+                log(f"groupnorm unet {tag} kernel {line}")
+            with mock.patch.object(layers, "group_norm_act", groupnorm.group_norm_plain):
+                for line in profile_unet(torch, lambda: net(xs, t, cs)):
+                    log(f"groupnorm unet {tag} plain {line}")
+    return out
+
+
+def flagship_groupnorm_shapes():
+    """(channels, resolution, modulated) of each GroupNorm of one flagship
+    UNet call, GN_PER_CALL of them."""
+    from tvc_torch.core.config import Config
+    from tvc_torch.models.diffusion.ncsnpp import NCSNppSpec, groupnorm_shapes
+
+    shapes = groupnorm_shapes(NCSNppSpec.from_config(Config()))
+    if len(shapes) != GN_PER_CALL:
+        fail(f"the flagship UNet has {len(shapes)} GroupNorms, not {GN_PER_CALL}")
+    return shapes
+
+
+def phase_groupnorm_kernel(torch):
+    """Phase 3, continued: the GroupNorm kernel at every GroupNorm shape of the
+    flagship UNet at B = 1, float32 and bf16, summed over a UNet call."""
+    from tvc_torch.ops import groupnorm
+
+    t0 = time.perf_counter()
+    shapes = flagship_groupnorm_shapes()
+    calls = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).replace("torch.", "")
+        calls[dt] = groupnorm_per_call(groupnorm_rows(torch, groupnorm, shapes, dtype, 1))
+        log(f"groupnorm per UNet call, B=1 {dt}: " + json.dumps(calls[dt]))
+    log(f"groupnorm kernel rows: {time.perf_counter() - t0:.1f} s")
+    return calls
+
+
+def phase_groupnorm(torch, layers):
+    """The GroupNorm kernel at every GroupNorm shape of the flagship UNet, in
+    float32 and bf16 at B = 1 and 8, summed over a UNet call's 81 norms, and
+    inside the full-width UNet; rows to chiprun_out/groupnorm.json."""
+    from tvc_torch.ops import groupnorm
+
+    shapes = flagship_groupnorm_shapes()
+    result = {"rows": [], "per_call": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (1, 8):
+            rows = groupnorm_rows(torch, groupnorm, shapes, dtype, b)
+            result["rows"] += rows
+            tot = groupnorm_per_call(rows)
+            tag = f"{str(dtype).replace('torch.', '')}_B{b}"
+            result["per_call"][tag] = tot
+            log(f"groupnorm per UNet call {tag}: " + json.dumps(tot))
+    result["unet"] = unet_groupnorm_calls(torch, groupnorm, layers)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "groupnorm.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
 KERNELS_ONLY = "--kernels-only"  # phases 1-3 alone, for bring-up runs; prints no result
 ZOO_ONLY = "--zoo-only"  # phases 1-3 and 18 alone, for bring-up runs; prints no result
 
@@ -2212,7 +2480,7 @@ def conv_share(torch, fn):
                and e.self_device_time_total > 0]
     total = sum(e.self_device_time_total for e in kernels)
     conv = sum(e.device_time_total for e in events if e.key == "aten::convolution")
-    gn = sum(e.device_time_total for e in events if e.key == "aten::group_norm")
+    gn = sum(e.self_device_time_total for e in kernels if "groupnorm_fwd" in e.key)
     attn_us = sum(e.self_device_time_total for e in kernels if is_attention_kernel(e.key))
     lines = [f"{e.self_device_time_total / 1e3:9.3f} ms {e.self_device_time_total / total:6.1%} "
              f"x{e.count:<5d} {e.key[:90]}"
@@ -2231,6 +2499,7 @@ def phase_bf16_unet(torch, attn, layers, predictor, pred16):
     from unittest import mock
 
     from tvc_torch.core.runtime import batched_conv_algorithms
+    from tvc_torch.ops import groupnorm
 
     cfg = predictor.cfg
     size, c = cfg.data.image_size, cfg.data.channels
@@ -2244,15 +2513,18 @@ def phase_bf16_unet(torch, attn, layers, predictor, pred16):
         x16, cond16 = x.to(torch.bfloat16), cond.to(torch.bfloat16)
         with torch.no_grad(), batched_conv_algorithms(b, "cuda"):
             before = attn.launches
+            groupnorm.reset_launches()
             out = pred16.model(x16, t, cond16)
             torch.cuda.synchronize()
             n = attn.launches - before
+            gn = groupnorm.launches
             with mock.patch.object(layers, "attention", attn.attention_plain):
                 ref = pred16.model(x16, t, cond16)
             f32 = predictor.model(x, t, cond)
             torch.cuda.synchronize()
             o, r, f = out.double(), ref.double(), f32.double()
             row = {"B": b, "dtype": str(out.dtype), "attention_launches": n,
+                   "groupnorm_launches": gn,
                    "kernel_vs_plain_max_rel": ((o - r).abs().max() / r.abs().max()).item(),
                    "kernel_vs_plain_mean_rel": ((o - r).abs().mean() / r.abs().mean()).item(),
                    "eps_vs_f32_max_rel": ((o - f).abs().max() / f.abs().max()).item(),
@@ -2275,6 +2547,7 @@ def phase_bf16_unet(torch, attn, layers, predictor, pred16):
             fail(f"the bf16 UNet at B = {b} returned {out.dtype}, finite {row['finite']}")
         if n != sum(k for *_, k in LEVELS):
             fail(f"the bf16 UNet at B = {b} launched {n} attention kernels, not 10")
+        check_groupnorm_launches(gn, 1, f"the bf16 UNet at B = {b}")
         if not (row["kernel_vs_plain_max_rel"] <= BF16_KERNEL_MAX_REL and row[
                 "eps_vs_f32_mean_rel"] <= BF16_KERNEL_MEAN_VS_PLAIN * row["plain_vs_f32_mean_rel"]):
             fail(f"the bf16 UNet at B = {b} through the kernel disagrees with the plain "
@@ -3122,6 +3395,10 @@ def main() -> None:
         for line in report.strip().splitlines():
             log("  " + line)
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    if GROUPNORM_ONLY in sys.argv[1:]:
+        phase_groupnorm(torch, layers)
+        log(f"groupnorm-only: the script took {time.perf_counter() - t_start:.1f} s")
+        return
     ptxas = {name: ptxas_entries(reports[name]) for name in ("attention", "attention_tc")}
     log("ptxas attention_fwd<float4 cols a lane>, attention_tc<64-col blocks, p.v terms>: "
         + json.dumps({name: {",".join(map(str, key)): e for key, e in sorted(entries.items())}
@@ -3139,6 +3416,7 @@ def main() -> None:
                 for s in range(1, attn.MAX_SPLITS + 1)] for dtype, name in attn.KERNELS.items()}))
     rows = phase_kernels(torch, attn, ptxas)
     zoo_rows = phase_kernels_zoo(torch, attn, ptxas)
+    gn_calls = phase_groupnorm_kernel(torch)
     if "--sweep" in sys.argv[1:]:
         phase_sweep(torch, attn)
     if KERNELS_ONLY in sys.argv[1:]:
@@ -3328,6 +3606,7 @@ def main() -> None:
                               for k in ("graph_wall_s", "graph_event_s", "eager_wall_s")}}
                 for name, *_ in ZOO},
         "attention_per_unet_call": calls,
+        "groupnorm_per_unet_call": gn_calls,
         "attention_3d_per_unet_call": {
             dt: {k: sum(r[k] * r["per_unet_call"] for r in zoo_rows if r["dtype"] == dt)
                  for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -3341,6 +3620,14 @@ def main() -> None:
                 **{k: calls[dt][1][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")}}
                for dt, name in (("float32", "attention"), ("bfloat16", "attention_tc"))]
+    # GroupNorm + scale/shift + SiLU, which XLA fused: float32's 81 launches of
+    # one UNet call at B = 1, bf16's beside them
+    gn_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels.append({"name": "groupnorm", "route": "cuda",
+                    "source": f"tvc_torch/csrc/{_build.SOURCES['groupnorm']}",
+                    "replaces": "none: tvc/models/diffusion/layers.py:258-287, fused by XLA",
+                    "launches": GROUPNORM_LAUNCHES, **{k: gn_calls["float32"][k] for k in gn_keys},
+                    "bfloat16": {k: gn_calls["bfloat16"][k] for k in gn_keys}})
     print(json.dumps({"kernels": kernels}))
     print(smi_name_power())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -64,3 +64,16 @@ def test_build_reruns_nvcc_only_when_the_key_changes(toolchain, monkeypatch):
     assert len(calls) == 3 and "-DEXTRA=1" in calls[-1]  # new flags
     _build.build(["attention"], force=True)
     assert len(calls) == 4
+
+
+def test_first_load_builds_every_kernel_together(toolchain, monkeypatch):
+    """The first launch of any kernel builds them all, one nvcc each started
+    together; a later load of another kernel finds it built."""
+    _, calls = toolchain
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: path)
+    assert _build.load("attention") == str(_build.lib_path("attention"))
+    assert sorted(Path(c[c.index("-o") + 1]).name.split(".")[0] for c in calls) == sorted(
+        f"lib{n}" for n in _build.SOURCES)
+    assert _build.load("groupnorm") == str(_build.lib_path("groupnorm"))
+    assert len(calls) == len(_build.SOURCES)

@@ -10,15 +10,17 @@ Tolerances: float32 max |kernel - plain| <= 1e-4 on N(0, 1) inputs (the two
 differ only in the order of float32 sums); bfloat16 within two bf16 ulps of
 the output's magnitude (the plain version rounds the softmax weights to bf16,
 the tensor-core kernel keeps about 16 bits of them). Reruns must be
-bit-identical: each kernel joins its key splits in a fixed order.
+bit-identical: each kernel joins its key splits in a fixed order. The
+GroupNorm kernel's tolerances are stated with its tests.
 """
 
 import pytest
 import torch
 
 from tvc_torch.core.config import Config
-from tvc_torch.models.diffusion.ncsnpp import UNetMoreDDPM
+from tvc_torch.models.diffusion.ncsnpp import NCSNppSpec, UNetMoreDDPM, groupnorm_shapes
 from tvc_torch.ops import attention as attn
+from tvc_torch.ops import groupnorm
 
 pytestmark = pytest.mark.gpu
 
@@ -209,6 +211,210 @@ def test_small_unet_forward_kernel_matches_plain(cuda):
     scale = ref.abs().max().item()
     assert scale > 1e-3
     assert (out - ref).abs().max().item() <= 1e-4 * scale
+
+
+# ---------------------------------------------------------------- the GroupNorm kernel
+
+# Tolerances of the GroupNorm kernel against ``group_norm_plain`` on the card:
+# the two differ only in the order of the statistics' sums (a tree over the
+# slice against ATen's Welford), which moves the mean and rstd by a few
+# float32 ulps. float32: max |kernel - plain| <= 1e-4 x max(1, max |plain|).
+# bf16: that change flips a value lying within it of a bf16 rounding boundary,
+# one bf16 ulp (2^-8 of the value), and the flip carries through the chain's
+# later roundings; so at most 1% of the elements may differ at all, none by
+# more than 2^-6 x max(1, max |plain|).
+GN_SHAPES = sorted(set(groupnorm_shapes(NCSNppSpec.from_config(Config()))))
+
+
+def _gn_inputs(b, c, spatial, dtype, mode, seed=0):
+    """x ~ 2 N(0, 1) + 0.3; per mode: (N, C) scale and shift as ``GetActNorm``
+    passes them (halves of one (N, 2C) projection), or a (C,) float32 weight
+    around 1 and bias, or neither."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((b, c, *spatial), generator=g, device="cuda") * 2 + 0.3).to(dtype)
+    w = bias = scale = shift = None
+    if mode == "emb":
+        scale, shift = (torch.randn((b, 2 * c), generator=g, device="cuda") * 0.3).to(
+            dtype).chunk(2, dim=1)
+    elif mode == "affine":
+        w = 1 + 0.3 * torch.randn(c, generator=g, device="cuda")
+        bias = 0.3 * torch.randn(c, generator=g, device="cuda")
+    return x, w, bias, scale, shift
+
+
+def _gn_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape and got.is_contiguous()
+    scale = max(1.0, want.float().abs().max().item())
+    diff = (got.float() - want.float()).abs()
+    if want.dtype == torch.float32:
+        assert diff.max().item() <= 1e-4 * scale
+    else:
+        assert diff.max().item() <= 2.0 ** -6 * scale
+        assert (diff > 0).float().mean().item() <= 0.01
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", GN_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}{'_emb' if s[2] else ''}")
+def test_groupnorm_kernel_matches_plain_at_unet_shapes(cuda, shape, dtype, b):
+    """Each GroupNorm shape of the flagship UNet as the UNet runs it (with the
+    time embedding and SiLU, or affine), one launch."""
+    c, r, emb = shape
+    x, w, bias, scale, shift = _gn_inputs(b, c, (r, r), dtype, "emb" if emb else "affine")
+    before = groupnorm.launches
+    got = groupnorm.group_norm_act(x, 32, 1e-5, w, bias, scale, shift, True, dtype)
+    assert groupnorm.launches == before + 1
+    _gn_close(got, groupnorm.group_norm_plain(x, 32, 1e-5, w, bias, scale, shift, True, dtype))
+
+
+@pytest.mark.parametrize("bf16_io", ["0", "1"], ids=["f32_io", "bf16_io"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("silu", [True, False], ids=["silu", "no_silu"])
+@pytest.mark.parametrize("mode", ["emb", "affine", "param_free"])
+def test_groupnorm_kernel_modes_match_plain(cuda, mode, silu, dtype, bf16_io, monkeypatch):
+    """Every mode, with and without SiLU, both TVC_GN_BF16_IO settings, at a
+    split slice (B = 1, 8 splits), a packed one (8x8) and a ragged one (runs
+    of 30 pixels: one element a load, bf16 weights)."""
+    monkeypatch.setenv("TVC_GN_BF16_IO", bf16_io)
+    for b, c, spatial in ((1, 384, (64, 64)), (8, 768, (8, 8)), (3, 64, (5, 6))):
+        x, w, bias, scale, shift = _gn_inputs(b, c, spatial, dtype, mode, seed=c)
+        if w is not None and c == 64:
+            w, bias = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+        got = groupnorm.group_norm_act(x, 32, 1e-6, w, bias, scale, shift, silu, dtype)
+        _gn_close(got, groupnorm.group_norm_plain(x, 32, 1e-6, w, bias, scale, shift, silu,
+                                                  dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_groupnorm_kernel_5d_and_spade_match_plain(cuda, dtype):
+    """``GetActNorm3D`` on the 3-D nets' volumes (7 frames; the widest at
+    128 x 128 reads its slices again from device memory) and SPADE's
+    param-free norm."""
+    from tvc_torch.models.diffusion.ncsnpp3d import GetActNorm3D
+    from tvc_torch.models.diffusion.spade import MySPADE
+
+    wide = 384 if dtype == torch.float32 else 768
+    for c, r in ((192, 32), (192, 128), (wide, 128)):
+        mod = GetActNorm3D(7 * c, 7, 768, dtype=dtype, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(r)
+        v = (torch.randn((1, c, 7, r, r), generator=g, device="cuda") * 2).to(dtype)
+        assert groupnorm.groupnorm_plan(1, c, 7 * r * r, 32, dtype).resident == (c != wide)
+        emb = torch.randn((1, 768), generator=g, device="cuda").to(dtype)
+        with torch.no_grad():
+            got = mod(v, emb)
+            scale, shift = mod.Dense_0(torch.nn.functional.silu(emb)).chunk(2, dim=1)
+            norm = mod.Norm_0
+            want = groupnorm.group_norm_plain(v, norm.num_groups, norm.eps, None, None, scale,
+                                              shift, True, dtype)
+        _gn_close(got, want)
+    spade = MySPADE(384, 6, 64, dtype=dtype, device="cuda")
+    x = _gn_inputs(2, 384, (32, 32), dtype, "param_free")[0]
+    with torch.no_grad():
+        got = spade.param_free_norm(x)
+    _gn_close(got, groupnorm.group_norm_plain(x, 32, 1e-6, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_groupnorm_kernel_reruns_are_bit_identical(cuda, dtype):
+    """Split slices (cluster joins) and packed ones give the same bits twice."""
+    for b, c, r in ((1, 384, 128), (8, 384, 128), (1, 192, 64), (8, 768, 8)):
+        x, w, bias, scale, shift = _gn_inputs(b, c, (r, r), dtype, "emb", seed=r)
+        a = groupnorm.group_norm_act(x, 32, 1e-5, w, bias, scale, shift, True, dtype)
+        assert torch.equal(a, groupnorm.group_norm_act(x, 32, 1e-5, w, bias, scale, shift,
+                                                        True, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_groupnorm_kernel_reads_channels_last(cuda, dtype):
+    """A channels-last input (the UNet's residual stream) is read as it lies,
+    into a contiguous output: split, packed, ragged and 5-D, the same bits on
+    a rerun."""
+    for b, c, spatial, mode in ((1, 192, (128, 128), "affine"), (8, 384, (64, 64), "emb"),
+                                (8, 768, (8, 8), "emb"), (3, 64, (5, 6), "param_free"),
+                                (1, 192, (7, 32, 32), "emb")):
+        x, w, bias, scale, shift = _gn_inputs(b, c, spatial, dtype, mode, seed=c)
+        xcl = x.movedim(1, -1).contiguous().movedim(-1, 1)
+        assert not xcl.is_contiguous()
+        got = groupnorm.group_norm_act(xcl, 32, 1e-5, w, bias, scale, shift, True, dtype)
+        _gn_close(got, groupnorm.group_norm_plain(x, 32, 1e-5, w, bias, scale, shift, True,
+                                                  dtype))
+        assert torch.equal(got, groupnorm.group_norm_act(xcl, 32, 1e-5, w, bias, scale, shift,
+                                                         True, dtype))
+
+
+def test_groupnorm_kernel_rejects_bad_input(cuda):
+    x = torch.randn(2, 64, 8, 8, device="cuda")
+    with pytest.raises(TypeError):  # no float16 kernel
+        groupnorm.group_norm_act(x.half(), 32, 1e-5, dtype=torch.float16)
+    with pytest.raises(TypeError):  # the input in another dtype than the compute dtype
+        groupnorm.group_norm_act(x, 32, 1e-5, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # the kernel reads contiguous or channels-last tensors
+        groupnorm.launch(x.transpose(2, 3), 32, 1e-5)
+    with pytest.raises(ValueError):
+        groupnorm.launch(x[:, :, :, ::2], 32, 1e-5)
+    # the wrapper makes any other layout contiguous first, as ATen's group norm does
+    odd = x.transpose(2, 3).contiguous().transpose(2, 3)
+    assert torch.equal(groupnorm.group_norm_act(odd, 32, 1e-5),
+                       groupnorm.group_norm_act(x, 32, 1e-5))
+    with pytest.raises(ValueError):  # a weight on another device
+        groupnorm.group_norm_act(x, 32, 1e-5, torch.ones(64), torch.zeros(64, device="cuda"))
+    with pytest.raises(ValueError):  # 64 channels in 24 groups
+        groupnorm.group_norm_act(x, 24, 1e-5)
+
+
+@pytest.mark.parametrize("mode", ["emb", "affine"])
+def test_groupnorm_gradient_matches_plain_autograd(cuda, mode):
+    """Where autograd records, the kernel's output carries a grad_fn, and the
+    gradients of x, the weights and the embedding's scale and shift are plain
+    autograd's (the backward recomputes the composition)."""
+    x, w, bias, scale, shift = (None if t is None else t.detach().clone().requires_grad_()
+                                for t in _gn_inputs(2, 384, (32, 32), torch.float32, mode, seed=5))
+    leaves = [t for t in (x, w, bias, scale, shift) if t is not None]
+    dy = torch.randn_like(x)
+    before = groupnorm.launches
+    out = groupnorm.group_norm_act(x, 32, 1e-5, w, bias, scale, shift, True)
+    assert groupnorm.launches == before + 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, dy)
+    ref = groupnorm.group_norm_plain(x, 32, 1e-5, w, bias, scale, shift, True)
+    want = torch.autograd.grad(ref, leaves, dy)
+    _gn_close(out.detach(), ref.detach())
+    for a, e in zip(got, want):
+        assert (a - e).abs().max().item() <= 1e-4 * e.abs().max().item()
+
+
+def test_unet_call_launches_every_groupnorm_once(cuda):
+    """A narrow NCSN++ call on the card launches the kernel once a GroupNorm
+    (eager, and counted at each graph replay) and agrees with the plain
+    composition inside the net."""
+    from unittest import mock
+
+    from tvc_torch.models.diffusion import layers
+    from tvc_torch.samplers.graph import GraphedEps
+
+    cfg, model, model16 = _bf16_unet()
+    per_call = len(groupnorm_shapes(NCSNppSpec.from_config(cfg)))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((1, 32, 32, 15), generator=g, device="cuda")
+    cond = torch.randn((1, 32, 32, 6), generator=g, device="cuda")
+    t = torch.tensor([10], device="cuda")
+    with torch.no_grad():
+        for net, tol in ((model, 1e-4), (model16, 5e-2)):
+            xs, cs = x.to(net.dtype), cond.to(net.dtype)
+            groupnorm.reset_launches()
+            out = net(xs, t, cs)
+            assert groupnorm.launches == per_call
+            with mock.patch.object(layers, "group_norm_act", groupnorm.group_norm_plain):
+                ref = net(xs, t, cs)
+            assert groupnorm.launches == per_call
+            scale = ref.float().abs().max().item()
+            assert (out.float() - ref.float()).abs().max().item() <= tol * scale
+        graphed = GraphedEps(model)
+        groupnorm.reset_launches()
+        outs = [graphed(x, t, cond) for _ in range(4)]  # eager, capture + replay, 2 replays
+    assert groupnorm.launches == 4 * per_call
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    assert graphed.stats()[next(iter(graphed.stats()))]["groupnorm_launches"] == per_call
 
 
 # ---------------------------------------------------------------- the codec and the GOP

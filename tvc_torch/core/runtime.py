@@ -60,7 +60,7 @@ def numerics_stamp(device, cfg, compute_dtype=torch.float32) -> Dict[str, str]:
     where the host computes something the receiver must repeat, its CPU's
     vector capability, and on a CPU device its thread count. A GOP payload
     carries it, and a receiver whose own stamp differs refuses the payload."""
-    from tvc_torch.models.diffusion.layers import gn_bf16_io
+    from tvc_torch.ops.groupnorm import gn_bf16_io
     from tvc_torch.ops import _build
     from tvc_torch.ops.resample import resample_env
 

@@ -15,7 +15,10 @@ its statistics in float32 and returns the compute dtype; its scale and shift
 are rounded to the compute dtype first (Flax keeps float32 masters there at
 float32), which is what makes bf16-stored weights and float32 masters give the
 same bytes. ``TVC_GN_BF16_IO=1`` keeps GroupNorm's input and output in a
-non-float32 compute dtype (``gn_bf16_io``).
+non-float32 compute dtype (``gn_bf16_io``, defined in ``ops/groupnorm.py``).
+GroupNorm with its optional time-embedding scale and shift and SiLU is one
+call, ``ops/groupnorm.group_norm_act``: one hand-written kernel on the card,
+the plain PyTorch composition on the CPU.
 
 Construction leaves PyTorch's default initialisation (``NIN``, which has
 none, draws the DDPM init from the global generator); ``init_params``
@@ -26,7 +29,6 @@ re-initialises every module with the DDPM ``default_init`` from an explicit
 from __future__ import annotations
 
 import math
-import os
 from typing import Optional, Sequence
 
 import torch
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tvc_torch.ops.attention import attention
+from tvc_torch.ops.groupnorm import group_norm_act
 from tvc_torch.ops.resample import (NCHW, conv_downsample_2d, downsample_2d, upsample_2d,
                                     upsample_conv_2d)
 
@@ -84,14 +87,6 @@ def num_groups_for(ch: int) -> int:
     while ch % ng != 0:
         ng -= 1
     return ng
-
-
-def gn_bf16_io() -> bool:
-    """``TVC_GN_BF16_IO=1``: GroupNorm of a non-float32 compute dtype reads and
-    writes that dtype and takes only its statistics in float32 (the JAX
-    package's ``_gn_bf16_io``); off by default. Read at each call, as the JAX
-    package reads it at each trace, and stamped into a GOP payload."""
-    return os.environ.get("TVC_GN_BF16_IO", "0") == "1"
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
@@ -225,15 +220,15 @@ class GroupNormRef(nn.GroupNorm):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        w = self.weight.to(dt) if self.affine else None
-        b = self.bias.to(dt) if self.affine else None
-        if dt != torch.float32 and gn_bf16_io():
-            # PyTorch's GroupNorm takes a half-precision input's statistics in float32
-            return F.group_norm(x.to(dt), self.num_groups, w, b, self.eps)
-        w = None if w is None else w.float()
-        b = None if b is None else b.float()
-        return F.group_norm(x.float(), self.num_groups, w, b, self.eps).to(dt)
+        return self.act(x)
+
+    def act(self, x: torch.Tensor, scale: Optional[torch.Tensor] = None,
+            shift: Optional[torch.Tensor] = None, silu: bool = False) -> torch.Tensor:
+        """The norm, then ``* (1 + scale) + shift`` with (N, C) ``scale`` and
+        ``shift``, then SiLU: ``ops/groupnorm.group_norm_act`` (one kernel on
+        the card)."""
+        return group_norm_act(x, self.num_groups, self.eps, self.weight if self.affine else None,
+                              self.bias if self.affine else None, scale, shift, silu, self.dtype)
 
 
 class AttnBlockpp(nn.Module):
@@ -290,13 +285,12 @@ class GetActNorm(nn.Module):
         self.has_emb = emb_dim is not None
 
     def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        y = self.Norm_0(x)
+        scale = shift = None
         if self.has_emb:
             if emb is None:
                 raise ValueError("GetActNorm built with emb_dim needs an embedding")
-            scale, shift = self.Dense_0(F.silu(emb))[:, :, None, None].chunk(2, dim=1)
-            y = y * (1 + scale) + shift
-        return F.silu(y)
+            scale, shift = self.Dense_0(F.silu(emb)).chunk(2, dim=1)
+        return self.Norm_0.act(x, scale, shift, silu=True)
 
 
 class ResnetBlockBigGAN(nn.Module):

@@ -143,6 +143,24 @@ def _build_plan(spec: NCSNppSpec) -> List[dict]:
     return plan
 
 
+def groupnorm_shapes(spec: NCSNppSpec) -> List[Tuple[int, int, bool]]:
+    """(channels, resolution, modulated by the time embedding) of each
+    GroupNorm of one UNet call, in call order: two a residual block (the
+    second after its resampling), one an attention block, the final
+    ``actnorm``. What the GroupNorm kernel's tests and timings run."""
+    out: List[Tuple[int, int, bool]] = []
+    res = spec.image_size
+    for p in _build_plan(spec):
+        if p["kind"] == "res":
+            after = res * 2 if p.get("up") else res // 2 if p.get("down") else res
+            out += [(p["in"], res, spec.time_conditional),
+                    (p["out"], after, spec.time_conditional)]
+            res = after
+        elif p["kind"] in ("attn", "actnorm"):
+            out.append((p["ch"], res, False))
+    return out
+
+
 class NCSNpp(nn.Module):
     """The 2-D channel-stacked-frames NCSN++ UNet (ncsnpp_more.py:32-392)."""
 

@@ -69,11 +69,10 @@ class GetActNorm3D(nn.Module):
         self.has_emb = emb_dim is not None
 
     def forward(self, v: torch.Tensor, emb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        y = self.Norm_0(v)
+        scale = shift = None
         if self.has_emb:
-            scale, shift = self.Dense_0(F.silu(emb))[:, :, None, None, None].chunk(2, dim=1)
-            y = y * (1 + scale) + shift
-        return F.silu(y)
+            scale, shift = self.Dense_0(F.silu(emb)).chunk(2, dim=1)
+        return self.Norm_0.act(v, scale, shift, silu=True)
 
 
 def _resample(v: torch.Tensor, op) -> torch.Tensor:

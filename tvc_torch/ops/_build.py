@@ -4,10 +4,10 @@ Each source under ``tvc_torch/csrc`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, in ``tvc_torch/build``, on
 first use; the wrappers load it with ``ctypes``. Nothing is built at import
 time, and nothing here runs on a host without the CUDA toolkit unless a kernel
-is launched. Sources are compiled in parallel, one ``nvcc`` each. A library is
-rebuilt when its key, a hash of every file under ``csrc`` and of the flags,
-differs from the key it was built with. Each compilation counts as
-``kernels.builds`` in ``utils/profiler.py``.
+is launched. Sources are compiled in parallel, one ``nvcc`` each, all of them
+at the first load. A library is rebuilt when its key, a hash of every file
+under ``csrc`` and of the flags, differs from the key it was built with. Each
+compilation counts as ``kernels.builds`` in ``utils/profiler.py``.
 
     python -m tvc_torch.ops._build      # build every kernel, print ptxas reports
 """
@@ -30,7 +30,8 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 
 # kernel name -> source file under csrc/
-SOURCES = {"attention": "attention.cu", "attention_tc": "attention_tc.cu"}
+SOURCES = {"attention": "attention.cu", "attention_tc": "attention_tc.cu",
+           "groupnorm": "groupnorm.cu"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -108,11 +109,14 @@ def build(names: Iterable[str] = tuple(SOURCES), force: bool = False) -> Dict[st
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``. The first load builds every
+    kernel that is missing or stale, all together (a process that launches
+    one kernel launches the others soon after: the UNet runs the attention
+    and GroupNorm kernels), so their ``nvcc`` runs overlap."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
+            build(SOURCES if not _libs else [name])
             lib = ctypes.CDLL(str(lib_path(name)))
             _libs[name] = lib
         return lib

@@ -1,0 +1,296 @@
+"""GroupNorm, the time embedding's scale and shift, and SiLU in one kernel.
+
+``group_norm_act(x, num_groups, eps, weight, bias, scale, shift, silu, dtype)``
+computes, on an (N, C, *spatial) input,
+
+    y = GroupNorm(x) [* w + b]  ->  [* (1 + scale) + shift]  ->  [SiLU]
+
+with float32 statistics and the result in the compute ``dtype``: the chain of
+``GroupNormRef``, ``GetActNorm`` and ``GetActNorm3D``
+(``models/diffusion/layers.py``, ``ncsnpp3d.py``); ``scale`` and ``shift`` are
+(N, C), one value a sample and channel. On a CPU tensor it runs
+``group_norm_plain``, the PyTorch composition the layers ran before the kernel,
+op for op, which is also the kernel's oracle on the card. On a CUDA tensor it
+launches ``tvc_torch/csrc/groupnorm.cu`` (built on first use) or raises: the
+kernel rounds where the composition rounds, so the two differ only in the
+order of the statistics' sums. The JAX package leaves this chain to XLA's
+fusion; no Pallas kernel stands behind it.
+
+Where autograd records, the kernel runs inside ``KernelGroupNorm``, whose
+backward recomputes the plain composition and differentiates it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+import os
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from tvc_torch.ops import _build
+
+MAX_SPLITS = 16     # the largest thread-block cluster an H100 schedules (8 is portable)
+# A block keeps its part of a slice in shared memory: at most SPLIT_BYTES where
+# a slice is split for its size, and a slice larger than MAX_SPLITS * SMEM_MAX
+# is read again from device memory.
+SPLIT_BYTES = 48 * 1024
+SMEM_MAX = 196 * 1024
+MIN_PART = 8 * 1024     # a slice split to fill the card keeps parts of at least this many bytes
+# Blocks that fill an H100 SXM (132 SMs) about twice over: a launch of fewer
+# slices splits them. A constant of the plan, never read from the card, so
+# that a sender and a receiver on other parts get the same plan and the same
+# bytes. The rule's constants come from timing every split at the flagship's
+# shapes (PERF.md).
+FILL_BLOCKS = 256
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_AFFINE, _EMB, _SILU, _IO, _PARAMS_BF16, _CL_PAIRS = 1, 2, 4, 8, 16, 32
+
+# Kernel launches since the last reset_launches(); counted only where the
+# kernel is launched, never on the CPU path. A launch recorded into a CUDA
+# graph adds to ``captured``, and the graph's owner counts its launches at
+# each replay (``count_launches``).
+launches = 0
+captured = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def count_launches(n: int) -> None:
+    """Count ``n`` launches made by replaying a CUDA graph."""
+    global launches
+    launches += n
+
+
+def gn_bf16_io() -> bool:
+    """``TVC_GN_BF16_IO=1``: GroupNorm of a non-float32 compute dtype reads and
+    writes that dtype and takes only its statistics in float32 (the JAX
+    package's ``_gn_bf16_io``); off by default. Read at each call, as the JAX
+    package reads it at each trace, and stamped into a GOP payload."""
+    return os.environ.get("TVC_GN_BF16_IO", "0") == "1"
+
+
+class GroupNormPlan(NamedTuple):
+    splits: int     # blocks a slice (n, group), one thread-block cluster
+    pix: int        # pixels of every channel of the group a split takes; the last may take fewer
+    vec: int        # elements a load: 16 bytes' worth, or 1 where the runs are not whole vectors
+    resident: bool  # the part stays in shared memory between the passes
+    ldb: int        # elements between two channel runs of a part in shared memory
+    blocks: int     # blocks of the launch
+    smem: int       # dynamic shared memory a block, bytes: the part and 16 bytes a channel
+    pairs: bool     # channels-last bf16 with channels even a group and in all: two a load
+
+
+def _pow2_ceil(v: int) -> int:
+    return 1 << max(0, math.ceil(math.log2(max(1, v))))
+
+
+def _pow2_floor(v: int) -> int:
+    return 1 << max(0, int(math.log2(max(1, v))))
+
+
+@functools.lru_cache(maxsize=1024)
+def groupnorm_plan(n: int, c: int, hw: int, groups: int, dtype: torch.dtype,
+                   channels_last: bool = False) -> GroupNormPlan:
+    """How the kernel cuts an (n, c, hw) launch with ``groups`` groups: a
+    function of the shape, dtype and layout alone, never of the card, so that
+    a sender and a receiver sum in the same order and get the same bytes.
+
+    A slice (n, group) is split along its pixels into a power of two of parts
+    (a cluster of blocks): enough that a part keeps at most ``SPLIT_BYTES``,
+    and where the launch has fewer than ``FILL_BLOCKS`` slices, enough to
+    reach it while a part keeps ``MIN_PART`` bytes; at most ``MAX_SPLITS``.
+    A channels-last input's part is stored with a 16-byte gap between its
+    channel runs, which spreads the element stores over the banks; in bf16
+    with an even number of channels a group and in all it is read two
+    channels a load, which sums in another order than one a load."""
+    if dtype not in DTYPES:
+        raise TypeError(f"group_norm_act supports float32 and bfloat16, got {dtype}")
+    if n < 1 or c < 1 or hw < 1 or groups < 1 or c % groups:
+        raise ValueError(f"no group norm plan for n={n} c={c} hw={hw} groups={groups}")
+    esize = torch.finfo(dtype).bits // 8
+    cg, slices = c // groups, n * groups
+    vec = 16 // esize if hw % (16 // esize) == 0 else 1
+    slice_bytes = cg * hw * esize
+    fill = min(_pow2_ceil(math.ceil(FILL_BLOCKS / slices)), _pow2_floor(slice_bytes // MIN_PART))
+    splits = min(MAX_SPLITS, hw // vec,
+                 max(_pow2_ceil(math.ceil(slice_bytes / SPLIT_BYTES)), fill))
+    pix = math.ceil(math.ceil(hw / splits) / vec) * vec
+    splits = math.ceil(hw / pix)
+    ldb = pix + (vec if channels_last and vec > 1 else 0)
+    part = cg * ldb * esize
+    resident = part <= SMEM_MAX
+    data = -(-part // 16) * 16 if resident else 0
+    pairs = channels_last and dtype == torch.bfloat16 and cg % 2 == 0 and c % 2 == 0
+    return GroupNormPlan(splits, pix, vec, resident, ldb, splits * slices, data + 16 * cg, pairs)
+
+
+def _rows(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """An (N, C) scale or shift shaped to broadcast over ``x``'s spatial dims."""
+    return t.reshape(t.shape + (1,) * (x.dim() - 2))
+
+
+def group_norm_plain(x: torch.Tensor, num_groups: int, eps: float,
+                     weight: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
+                     scale: Optional[torch.Tensor] = None, shift: Optional[torch.Tensor] = None,
+                     silu: bool = False, dtype: torch.dtype = torch.float32,
+                     io: Optional[bool] = None) -> torch.Tensor:
+    """The chain as plain PyTorch ops: ``GroupNormRef`` (float32 statistics,
+    the affine weights rounded to ``dtype`` first; with ``io``, default
+    ``gn_bf16_io()``, a non-float32 dtype's input and output stay in it),
+    then ``y * (1 + scale) + shift`` and ``silu`` in ``dtype``."""
+    dt = dtype
+    io = gn_bf16_io() if io is None else io
+    w = weight.to(dt) if weight is not None else None
+    b = bias.to(dt) if bias is not None else None
+    if dt != torch.float32 and io:
+        # PyTorch's GroupNorm takes a half-precision input's statistics in float32
+        y = F.group_norm(x.to(dt), num_groups, w, b, eps)
+    else:
+        w = None if w is None else w.float()
+        b = None if b is None else b.float()
+        y = F.group_norm(x.float(), num_groups, w, b, eps).to(dt)
+    if scale is not None:
+        y = y * (1 + _rows(scale, x)) + _rows(shift, x)
+    return F.silu(y) if silu else y
+
+
+def _check(x, num_groups, weight, bias, scale, shift, dtype) -> None:
+    if x.dim() < 2:
+        raise ValueError(f"group_norm_act expects an (N, C, *spatial) tensor, got {tuple(x.shape)}")
+    if dtype not in DTYPES or x.dtype != dtype:
+        raise TypeError(f"group_norm_act runs float32 or bfloat16 with x in the compute dtype, "
+                        f"got x {x.dtype} and dtype {dtype}")
+    n, c = x.shape[:2]
+    if c % num_groups:
+        raise ValueError(f"{c} channels do not split into {num_groups} groups")
+    if (weight is None) != (bias is None) or (scale is None) != (shift is None):
+        raise ValueError("weight and bias, and scale and shift, come in pairs")
+    for name, t, shape in (("weight", weight, (c,)), ("bias", bias, (c,)),
+                           ("scale", scale, (n, c)), ("shift", shift, (n, c))):
+        if t is None:
+            continue
+        if tuple(t.shape) != shape or t.device != x.device:
+            raise ValueError(f"{name} must be {shape} on {x.device}, got {tuple(t.shape)} on "
+                             f"{t.device}")
+        if name in ("scale", "shift") and (t.dtype != dtype or (c > 1 and t.stride(1) != 1)):
+            raise ValueError(f"{name} must be {dtype} with unit column stride")
+        if t.dtype not in DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    if weight is not None and weight.dtype != bias.dtype:
+        raise TypeError("weight and bias must share a dtype")
+
+
+def _kernel():
+    """The C entry point of ``csrc/groupnorm.cu``, built on first use."""
+    fn = _build.load("groupnorm").tvc_groupnorm_forward
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
+                       + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
+                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def channels_last(x: torch.Tensor) -> bool:
+    """Whether ``x`` (N, C, *spatial) lies channels-last and not contiguous."""
+    return x.dim() > 2 and not x.is_contiguous() and x.movedim(1, -1).is_contiguous()
+
+
+def launch(x: torch.Tensor, num_groups: int, eps: float, weight=None, bias=None, scale=None,
+           shift=None, silu: bool = False, io: bool = False) -> torch.Tensor:
+    """Launch the kernel on a CUDA tensor that ``_check`` accepts (its dtype
+    is the compute dtype), contiguous or channels-last, into a new contiguous
+    tensor, with ``groupnorm_plan``'s plan. Counts one launch, or one capture
+    while the stream records a CUDA graph."""
+    global launches, captured
+    cl = channels_last(x)
+    if not (cl or x.is_contiguous()):
+        raise ValueError("group_norm_act's kernel expects a contiguous or channels-last "
+                         f"(N, C, *spatial) tensor, got strides {x.stride()}")
+    n, c = x.shape[:2]
+    hw = math.prod(x.shape[2:])
+    plan = groupnorm_plan(n, c, hw, num_groups, x.dtype, cl)
+    if (plan.vec > 1 and not cl and x.data_ptr() % 16) or (plan.pairs and x.data_ptr() % 4):
+        x = x.clone()  # a fresh allocation, aligned, in x's layout
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    io = io and x.dtype != torch.float32
+    if io:  # ATen's bf16 group norm takes eps in the input's dtype
+        eps = float(torch.tensor(eps, dtype=x.dtype))
+    flags = ((_AFFINE if weight is not None else 0) | (_EMB if scale is not None else 0)
+             | (_SILU if silu else 0) | (_IO if io else 0)
+             | (_PARAMS_BF16 if weight is not None and weight.dtype == torch.bfloat16 else 0)
+             | (_CL_PAIRS if plan.pairs else 0))
+    ss = (scale.stride(0), shift.stride(0)) if scale is not None else (0, 0)
+    err = _kernel()(x.data_ptr(), y.data_ptr(), _ptr(weight), _ptr(bias), _ptr(scale),
+                    _ptr(shift), *ss, n, c, hw, num_groups, eps, DTYPES[x.dtype], flags,
+                    int(cl), plan.splits, plan.pix, plan.vec, int(plan.resident),
+                    plan.ldb, x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"groupnorm kernel launch failed with CUDA error {err} at shape "
+                           f"{tuple(x.shape)} {x.dtype} (channels-last {cl}) with {plan}")
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
+    return y
+
+
+class KernelGroupNorm(torch.autograd.Function):
+    """The kernel's forward with the plain composition's gradient: the
+    backward recomputes ``group_norm_plain`` and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, scale, shift, num_groups, eps, silu, io):
+        ctx.save_for_backward(x, weight, bias, scale, shift)
+        ctx.args = (num_groups, eps, silu, io)
+        return launch(x, num_groups, eps, weight, bias, scale, shift, silu, io)
+
+    @staticmethod
+    def backward(ctx, dy):
+        num_groups, eps, silu, io = ctx.args
+        needs = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, needs)]
+            x, weight, bias, scale, shift = leaves
+            y = group_norm_plain(x, num_groups, eps, weight, bias, scale, shift, silu,
+                                 x.dtype, io)
+            wanted = [t for t, need in zip(leaves, needs) if t is not None and need]
+            grads = iter(torch.autograd.grad(y, wanted, dy) if wanted else ())
+        return tuple(next(grads) if t is not None and need else None
+                     for t, need in zip(leaves, needs)) + (None,) * 4
+
+
+def group_norm_act(x: torch.Tensor, num_groups: int, eps: float,
+                   weight: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
+                   scale: Optional[torch.Tensor] = None, shift: Optional[torch.Tensor] = None,
+                   silu: bool = False, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The chain of the module's docstring: the CUDA kernel on the card
+    (through ``KernelGroupNorm``, which saves nothing where autograd does not
+    record), ``group_norm_plain`` for CPU tensors. ``TVC_GN_BF16_IO`` is read
+    at each call. ``x`` is in ``dtype`` on either device (``_check``), so
+    the CPU accepts what the card accepts; the kernel reads it contiguous or
+    channels-last, any other layout (the 3-D nets' volumes, frames innermost)
+    is made contiguous first, as ATen's group norm makes its input on the
+    card; the result is contiguous."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"group_norm_act runs on cuda or cpu tensors, got {x.device}")
+    _check(x, num_groups, weight, bias, scale, shift, dtype)
+    if x.device.type == "cpu":
+        return group_norm_plain(x, num_groups, eps, weight, bias, scale, shift, silu, dtype)
+    if not (x.is_contiguous() or channels_last(x)):
+        x = x.contiguous()
+    return KernelGroupNorm.apply(x, weight, bias, scale, shift, num_groups, eps, silu,
+                                 gn_bf16_io())

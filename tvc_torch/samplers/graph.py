@@ -20,7 +20,8 @@ call copies its inputs into the static buffers, replays the graph and
 clones the output (a sampler may keep earlier outputs, as F-PNDM keeps four).
 A graph replays the kernels that the eager call launched, on the same
 inputs, so its output is the eager output byte for byte (the card-only
-tests and ``chip_smoke.py`` hold it to that).
+tests and ``chip_smoke.py`` hold it to that). The attention and GroupNorm
+kernels' launch counters count a replay's launches at each replay.
 
 A failed capture or replay raises; nothing falls back to the eager call.
 The caller decides the device: a frame predictor on the CPU passes
@@ -39,7 +40,7 @@ from typing import Callable, Dict, Hashable, Optional, Set
 
 import torch
 
-from tvc_torch.ops import attention
+from tvc_torch.ops import attention, groupnorm
 from tvc_torch.utils import profiler
 
 
@@ -50,6 +51,7 @@ class _Entry:
     output: torch.Tensor
     attention_launches: int   # attention kernels the graph launches a replay
     kernel_launches: Dict[str, int]  # of them, by kernel name
+    groupnorm_launches: int   # GroupNorm kernels the graph launches a replay
     capture_s: float          # host seconds of the capture
     pool_bytes: int           # device memory the capture reserved (its pool)
     replays: int = 0
@@ -103,12 +105,14 @@ class GraphedEps:
             entry.graph.replay()  # raises on a failed replay
             profiler.count("graph.replays")
             attention.count_launches(entry.attention_launches, entry.kernel_launches)
+            groupnorm.count_launches(entry.groupnorm_launches)
             entry.replays += 1
             return entry.output.clone()
 
     def _capture(self, key, inputs) -> _Entry:
         static = {k: torch.empty_like(v) for k, v in inputs.items() if v is not None}
         c0 = dict(attention.kernel_captured)
+        g0 = groupnorm.captured
         with profiler.timed("predictor.capture") as timer:
             profiler.count("graph.captures")
             try:
@@ -117,14 +121,16 @@ class GraphedEps:
             except Exception as e:
                 raise RuntimeError(f"CUDA graph capture of the UNet call {key} failed") from e
         by_kernel = {k: n - c0[k] for k, n in attention.kernel_captured.items()}
-        entry = _Entry(graph, static, out, launches, by_kernel, timer.seconds, pool)
+        entry = _Entry(graph, static, out, launches, by_kernel, groupnorm.captured - g0,
+                       timer.seconds, pool)
         self.entries[key] = entry
         return entry
 
     def stats(self) -> Dict[str, dict]:
-        """Per signature: capture seconds, pool bytes, attention launches a
-        replay and replays so far."""
+        """Per signature: capture seconds, pool bytes, attention and GroupNorm
+        launches a replay and replays so far."""
         return {str(k): {"capture_s": e.capture_s, "pool_bytes": e.pool_bytes,
-                         "attention_launches": e.attention_launches, "replays": e.replays}
+                         "attention_launches": e.attention_launches,
+                         "groupnorm_launches": e.groupnorm_launches, "replays": e.replays}
                 for k, e in self.entries.items()}
 

@@ -43,6 +43,7 @@ where there is one, the card, with the recorder on: ``logdir/trace.json``
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import time
@@ -70,6 +71,19 @@ def count_params(params: Union[nn.Module, Iterable[torch.Tensor], Dict[str, torc
     return int(sum(p.numel() for p in params))
 
 
+@contextlib.contextmanager
+def _gc_paused():
+    """No garbage collection inside: a collection between a profiler range's
+    clock read and its span's would lengthen the one and not the other."""
+    on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if on:
+            gc.enable()
+
+
 class _Span:
     __slots__ = ("name", "gop", "t0", "t1", "_index", "_generation", "_range")
 
@@ -86,21 +100,24 @@ class _Span:
             _open.append(self._index)
             if torch.autograd._profiler_enabled():
                 self._range = torch.profiler.record_function("tvc." + self.name)
+        with _gc_paused() if self._range is not None else _NULL:
+            if self._range is not None:
                 self._range.__enter__()
-        self.t0 = time.perf_counter_ns()
+            self.t0 = time.perf_counter_ns()
         if self._index is not None:
             _spans[self._index][1] = self.t0
         return self
 
     def __exit__(self, *exc) -> bool:
-        self.t1 = time.perf_counter_ns()
-        if self._index is not None:
-            if self._generation == _generation:
-                _spans[self._index][2] = self.t1
-                if _open and _open[-1] == self._index:
-                    _open.pop()
-            if self._range is not None:
-                self._range.__exit__(*exc)
+        with _gc_paused() if self._range is not None else _NULL:
+            self.t1 = time.perf_counter_ns()
+            if self._index is not None:
+                if self._generation == _generation:
+                    _spans[self._index][2] = self.t1
+                    if _open and _open[-1] == self._index:
+                        _open.pop()
+                if self._range is not None:
+                    self._range.__exit__(*exc)
         return False
 
     @property
@@ -186,11 +203,14 @@ def record() -> Dict[str, Any]:
     """``{"spans": [...], "counters": {...}}`` of the current or last record.
     A span is ``{"name", "start_ns", "end_ns", "parent", "gop"}`` (``end_ns``
     None while it is open); the counters include the attention kernels'
-    launch counts as ``ops/attention.py`` keeps them (``attention.kernel_launches``)."""
-    from tvc_torch.ops import attention
+    launch counts as ``ops/attention.py`` keeps them (``attention.kernel_launches``)
+    and the GroupNorm kernel's as ``ops/groupnorm.py`` does
+    (``groupnorm.kernel_launches``)."""
+    from tvc_torch.ops import attention, groupnorm
 
     counters: Dict[str, Any] = dict(_counters)
     counters["attention.kernel_launches"] = dict(attention.kernel_launches)
+    counters["groupnorm.kernel_launches"] = groupnorm.launches
     return {"spans": [{"name": n, "start_ns": a, "end_ns": b, "parent": p, "gop": g}
                       for n, a, b, p, g in _spans],
             "counters": counters}
