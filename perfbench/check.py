@@ -1,9 +1,11 @@
 """The comparison that decides ``correct``.
 
 After the window has closed, the program's state is freed and its peak
-memory read, the plain reference (``perfbench/reference``) recomputes what
-the timed path produced on the calls sampled for it, from the same inputs
-and the same weights, and the gaps between the two are the numbers compared:
+memory read, the plain reference (``perfbench/reference``: the configuration's
+own net, its ``reference`` module, under the shared DDPM sampler, LPIPS and
+ELIC) recomputes what the timed path produced on the calls sampled for it,
+from the same inputs and the same weights, and the gaps between the two are
+the numbers compared:
 
 - ``pred_rms``: root mean square of the program's predicted frames less the
   reference's ([0, 1] pixels), over the sampled predictions. The reference
@@ -38,7 +40,7 @@ swing with rounding ties, and the last counts them.
 
 A number passes when it is at most its limit (``perfbench/limits/<cell>.json``).
 The control of a cell (``perfbench/control.py``) puts the reference, one
-precision lower, in the program's place: ``Reference(cfg, states, precision)``.
+precision lower, in the program's place: ``Reference(net, cfg, states, precision)``.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from __future__ import annotations
 import json
 import math
 import sys
+from types import ModuleType
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -54,7 +57,7 @@ import torch
 from perfbench.reference.elic import PlainELIC
 from perfbench.reference.lpips import lpips as plain_lpips
 from perfbench.reference.precision import plain_numerics
-from perfbench.reference.unet import PlainUNet, predict, update_seed
+from perfbench.reference.ddpm import predict, update_seed
 
 COMPARED = ("pred_rms", "lpips_gap", "recon_med", "gops_wrong")
 INFO = ("pred_max", "recon_rms", "stream_gap", "tie_rows", "bits_gap")
@@ -78,12 +81,13 @@ def frame_bits(strings, batch: int) -> List[float]:
 
 
 class Reference:
-    """The plain reference over the benchmark's weights, in one precision."""
+    """The plain reference over the benchmark's weights, in one precision:
+    ``net.Net`` (``net`` the configuration's reference module) for the UNet."""
 
-    def __init__(self, cfg: dict, states: Dict[str, Dict[str, torch.Tensor]],
+    def __init__(self, net: ModuleType, cfg: dict, states: Dict[str, Dict[str, torch.Tensor]],
                  precision: str = "f32"):
         self.cfg = cfg
-        self.unet = PlainUNet(cfg, states["unet"], precision)
+        self.unet = net.Net(cfg, states["unet"], precision)
         self.elic = PlainELIC(states["elic"], cfg["codec"]["groups"], precision)
         self.lpips_state = states["lpips"]
         self.precision = precision

@@ -44,12 +44,13 @@ def readings(workload: str, seed: int, device: str = "cuda", root=None) -> dict:
     run.free_program()
     states = run.float_states()
     kept, unit_seed = run.recorder.kept, run.unit_seed(record.UNIT)
-    ref = check.Reference(run.config["config"], states, "f32").outputs(kept, unit_seed, run.device)
+    cfg = run.config["config"]
+    ref = check.Reference(run.reference, cfg, states, "f32").outputs(kept, unit_seed, run.device)
     program = check.numbers(check.program_outputs(kept, run.device), ref)
     program["gops_wrong"] = float(sum(u["wrong"] for u in run.units))
     precision = CONTROL[run.config["dtype"]]
-    ctl = check.Reference(run.config["config"], states, precision).outputs(kept, unit_seed,
-                                                                           run.device)
+    ctl = check.Reference(run.reference, cfg, states, precision).outputs(kept, unit_seed,
+                                                                         run.device)
     control = check.numbers(ctl, ref)
     out = {"seed": seed, "workload": workload, "units": len(run.units),
            "program": program, "control": control, "control_precision": precision}

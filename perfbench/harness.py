@@ -9,7 +9,8 @@ lockstep batch of GOPs): it starts units until ``seconds`` have passed and
 finishes the one in flight. After the window it reads the metrics, decodes
 the kept keyframe streams with the program's coder (its receiver side),
 frees the program's state and compares the sampled outputs with the plain
-reference.
+reference (the configuration's own net, its ``reference`` module, under the
+shared sampler, LPIPS and ELIC).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import gc
 import sys
 import time
 from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -30,17 +32,20 @@ from perfbench.weights import fill_elic_, fill_lpips_, fill_unet_, subseed
 # top-level module names the measured process must never hold
 FORBIDDEN = ("jax", "jaxlib", "flax", "tvc")
 DTYPES = ("float32", "bfloat16")
-# what the plain reference implements; a configuration must keep to it
-REFERENCE_SETTINGS = {
-    "model": {"version": "DDPM", "gamma": False, "arch": "unetmore", "spade": False,
-              "time_conditional": True, "embedding_type": "positional", "noise_in_cond": False,
-              "cond_emb": False, "sigma_dist": "linear", "dropout": 0.0},
+# what every configuration keeps: the shared references (the DDPM sampler,
+# LPIPS, ELIC on exact streams) implement these only; the net's own settings
+# are its reference module's SETTINGS
+SHARED_SETTINGS = {
+    "model": {"version": "DDPM", "gamma": False, "sigma_dist": "linear", "noise_in_cond": False,
+              "dropout": 0.0},
     "data": {"num_frames_future": 0, "rescaled": True, "logit_transform": False,
              "uniform_dequantization": False, "gaussian_dequantization": False},
     "sampling": {"denoise": True, "clip_before": True, "init_prev_t": -1.0,
                  "precision_schedule": ""},
     "codec": {"exact_streams": True},
 }
+# the published widths: the built UNet's parameters against ``params_millions``
+PARAMS_TOLERANCE_M = 0.05
 
 
 class RunError(RuntimeError):
@@ -52,13 +57,29 @@ def forbidden_modules() -> List[str]:
     return sorted({name.split(".")[0] for name in list(sys.modules)} & set(FORBIDDEN))
 
 
-def check_reference_settings(cfg: dict) -> None:
-    for section, keys in REFERENCE_SETTINGS.items():
+def check_settings(cfg: dict, reference: ModuleType) -> None:
+    """Refuse a configuration that sets, or leaves out, a setting the shared
+    references or its own reference module (``reference.SETTINGS``, its
+    ``model`` keys) do not implement."""
+    wanted = dict(SHARED_SETTINGS, model={**SHARED_SETTINGS["model"], **reference.SETTINGS})
+    for section, keys in wanted.items():
         for key, want in keys.items():
+            if key not in cfg.get(section, {}):
+                raise RunError(f"the configuration does not set {section}.{key}; the plain "
+                               f"reference implements {want!r} only")
             got = cfg[section][key]
             if got != want:
                 raise RunError(f"the configuration sets {section}.{key}={got!r}; the plain "
                                f"reference implements {want!r} only")
+
+
+def check_params(model, params_millions: float) -> None:
+    """Refuse a built UNet whose parameters, of every dtype, differ from the
+    configuration's ``params_millions`` by more than ``PARAMS_TOLERANCE_M``."""
+    built = sum(p.numel() for p in model.parameters()) / 1e6
+    if abs(built - params_millions) > PARAMS_TOLERANCE_M:
+        raise RunError(f"the built UNet holds {built:.4f}M parameters; the configuration "
+                       f"states params_millions={params_millions}")
 
 
 class Run:
@@ -70,6 +91,7 @@ class Run:
         self.manifest = Manifest(root) if root is not None else Manifest()
         self.cell = self.manifest.cell(workload)
         self.config = self.manifest.config(self.cell)
+        self.reference = self.manifest.reference(self.config)
         self.traffic = self.manifest.traffic(self.cell)
         self.limits = check.load_limits(self.manifest.limits_path(self.cell))
         self.metric_specs = self.manifest.metrics(self.cell, trace)
@@ -82,7 +104,7 @@ class Run:
         self.window = (0.0, 0.0)
         self.peak_bytes = 0
         self.profile: Optional[dict] = None
-        check_reference_settings(self.config["config"])
+        check_settings(self.config["config"], self.reference)
         if self.config["dtype"] not in DTYPES:
             raise RunError(f"dtype {self.config['dtype']!r} is not one of {DTYPES}")
 
@@ -157,7 +179,9 @@ class Run:
         dtype = getattr(torch, self.config["dtype"])
         params_dtype = getattr(torch, self.config["params_dtype"])
         gen = torch.Generator(device=self.device)
-        unet = UNetMoreDDPM(self.tcfg, device="meta").to_empty(device=self.device)
+        unet = UNetMoreDDPM(self.tcfg, device="meta")
+        check_params(unet, self.config["params_millions"])
+        unet = unet.to_empty(device=self.device)
         unet = unet.to(params_dtype)
         fill_unet_(unet, gen.manual_seed(subseed(self.seed, "unet")))
         codec = self.tcfg.codec
@@ -272,7 +296,7 @@ class Run:
             torch.cuda.empty_cache()
 
     def compare(self) -> dict:
-        ref = check.Reference(self.config["config"], self.float_states(), "f32")
+        ref = check.Reference(self.reference, self.config["config"], self.float_states(), "f32")
         ref_out = ref.outputs(self.recorder.kept, self.unit_seed(record.UNIT),
                               self.device)
         values = check.numbers(check.program_outputs(self.recorder.kept, self.device), ref_out)

@@ -1,31 +1,37 @@
-"""Plain NCSN++ UNet and DDPM sampler: the reference of a frame prediction.
+"""Plain NCSN++ UNet: the reference net of the concat NCSN++ configurations.
 
 Written from the architecture of MCVD's ``ncsnpp_more.py`` (the channel-
-stacked conditional NCSN++ of Voleti et al., 2022) and its DDPM sampler, as
-plain ``torch`` operations on NCHW tensors in float32: convolutions,
-GroupNorm, SiLU, FIR resampling as one depthwise ``upfirdn2d`` convolution,
-and attention as ``softmax(q k^T / sqrt(d)) v`` by matrix products. It reads
-the weights from a state dict under the reference's keys
-(``unet.all_modules.{i}.*``) and builds nothing of its own.
+stacked conditional NCSN++ of Voleti et al., 2022) as plain ``torch``
+operations on NCHW tensors in float32: convolutions, GroupNorm, SiLU, FIR
+resampling as one depthwise ``upfirdn2d`` convolution, and attention as
+``softmax(q k^T / sqrt(d)) v`` by matrix products. It reads the weights from
+a state dict under the reference's keys (``unet.all_modules.{i}.*``) and
+builds nothing of its own.
 
-Only the settings the benchmark's configurations use are written out: the
-positional time embedding, no cond-mask embedding, no noise in the
-conditioning, DDPM with the denoise step, ``clip_before``, no warm start.
+A reference module as ``perfbench/manifest.py`` states the contract:
+``SETTINGS`` (the ``model`` keys it implements: the positional time
+embedding, no cond-mask embedding, frames stacked on the channels), ``Net``,
+``unet_flops`` and ``attention_launches``. The sampler is shared
+(``perfbench/reference/ddpm.py``); its names stay importable from here.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
+from perfbench.flops import attention_flops, conv_flops
+from perfbench.reference.ddpm import ddpm_constants, draws, predict, update_seed  # noqa: F401
 from perfbench.reference.precision import Precision
 
+SETTINGS = {"arch": "unetmore", "spade": False, "time_conditional": True,
+            "embedding_type": "positional", "cond_emb": False}
 SQRT2 = math.sqrt(2.0)
 FIR = (1.0, 3.0, 3.0, 1.0)
+FIR_TAPS = len(FIR) ** 2  # the 4x4 (outer product of a 4-tap) FIR kernel
 
 
 def num_groups(ch: int) -> int:
@@ -72,6 +78,10 @@ def module_plan(cfg: dict) -> List[dict]:
     plan += [{"kind": "actnorm", "ch": ch},
              {"kind": "conv", "in": ch, "out": d["channels"] * d["num_frames"], "res": res[0]}]
     return plan
+
+
+def attention_heads(ch: int, head_channels: int) -> int:
+    return 1 if ch < head_channels else ch // head_channels
 
 
 def fir_kernel(gain: float) -> torch.Tensor:
@@ -151,8 +161,7 @@ class PlainUNet:
     def attn(self, i, x):
         b, c, hh, ww = x.shape
         t = hh * ww
-        hc = self.cfg["model"]["n_head_channels"]
-        heads = 1 if c < hc else c // hc
+        heads = attention_heads(c, self.cfg["model"]["n_head_channels"])
         d = c // heads
         tok = F.group_norm(x, num_groups(c), self.w(i, "GroupNorm_0.weight"),
                            self.w(i, "GroupNorm_0.bias"), eps=1e-6).flatten(2).transpose(1, 2)
@@ -208,70 +217,44 @@ class PlainUNet:
         return h.permute(0, 2, 3, 1)
 
 
-def ddpm_constants(cfg: dict) -> dict:
-    """Labels and float32 coefficients of each executed step: the sub-sampled
-    linear schedule's regular steps, then the denoise step."""
-    m, s = cfg["model"], cfg["sampling"]
-    T = m["num_classes"]
-    betas = np.linspace(m["sigma_begin"], m["sigma_end"], T, dtype=np.float64)
-    alphas_full = np.cumprod(1.0 - betas[::-1])[::-1]
-    steps = np.arange(0, T, T // s["subsample"])
-    a = alphas_full[steps]
-    a_prev = np.concatenate([a[1:], [1.0]])
-    beta = 1.0 - a / a_prev
-    L = len(steps)
-    sigma = np.sqrt((1.0 - a_prev) / (1.0 - a) * beta)
-    sigma[L - 1] = 0.0
-    c0 = np.sqrt(a_prev) * beta / (1.0 - a)
-    c1 = np.sqrt(1.0 - beta) * (1.0 - a_prev) / (1.0 - a)
-    c2 = np.zeros(L)
-    labels = steps.astype(np.int64)
-    # the denoise step: label L - 1, x <- x - sqrt(1 - a_last) eps
-    labels = np.concatenate([labels, [L - 1]])
-    a = np.concatenate([a, [a[-1]]])
-    c0, c1 = np.concatenate([c0, [0.0]]), np.concatenate([c1, [1.0]])
-    c2 = np.concatenate([c2, [-np.sqrt(1.0 - a[-1])]])
-    sigma = np.concatenate([sigma, [0.0]])
-    a32 = a.astype(np.float32)
-    f32 = {k: v.astype(np.float32) for k, v in dict(c0=c0, c1=c1, c2=c2, sigma=sigma).items()}
-    return dict(labels=labels, sqrt_a=np.sqrt(a32), sqrt_1ma=np.sqrt(np.float32(1.0) - a32), **f32)
+Net = PlainUNet
 
 
-def draws(cfg: dict, generator: torch.Generator, batch: int):
-    """(x_init, step noise) drawn from ``generator`` in the sampler's order:
-    x_init, then one draw per executed step that adds noise."""
-    d = cfg["data"]
-    shape = (batch, d["image_size"], d["image_size"], d["channels"] * d["num_frames"])
-    x_init = torch.randn(shape, generator=generator, dtype=torch.float32, device=generator.device)
-    sigma = ddpm_constants(cfg)["sigma"]
-    noise = [torch.randn(shape, generator=generator, dtype=torch.float32, device=generator.device)
-             if s != 0 else None for s in sigma]
-    return x_init, noise
+def attention_launches(cfg: dict) -> List[Tuple[int, int, int]]:
+    """(heads, tokens, head dim) of each attention call of one UNet call, in order."""
+    hc = cfg["model"]["n_head_channels"]
+    out = []
+    for p in module_plan(cfg):
+        if p["kind"] == "attn":
+            heads = attention_heads(p["ch"], hc)
+            out.append((heads, p["res"] ** 2, p["ch"] // heads))
+    return out
 
 
-def update_seed(seed: int, update: int) -> int:
-    """The generator seed of update ``update`` of a GOP or sweep coded with ``seed``."""
-    return (seed * 1_000_003 + update) % (1 << 63)
-
-
-def predict(cfg: dict, unet: PlainUNet, cond_frames: torch.Tensor, gen_seed: int) -> torch.Tensor:
-    """One prediction: cond_frames (B, H, W, C*F_cond) in [0, 1] -> frames
-    (B, F, H, W, C) in [0, 1], the noise drawn from a generator on
-    ``cond_frames``' device seeded ``gen_seed``."""
-    dev = cond_frames.device
-    b = cond_frames.shape[0]
-    gen = torch.Generator(device=dev).manual_seed(gen_seed)
-    x, noise = draws(cfg, gen, b)
-    k = ddpm_constants(cfg)
-    cond = 2.0 * cond_frames.float() - 1.0
-    for i in range(len(k["labels"])):
-        labels = torch.full((b,), int(k["labels"][i]), dtype=torch.long, device=dev)
-        eps = unet(x, labels, cond)
-        x0 = torch.clamp((x - float(k["sqrt_1ma"][i]) * eps) / float(k["sqrt_a"][i]), -1.0, 1.0)
-        x = float(k["c0"][i]) * x0 + float(k["c1"][i]) * x + float(k["c2"][i]) * eps
-        if noise[i] is not None:
-            x = x + float(k["sigma"][i]) * noise[i]
-    d = cfg["data"]
-    out = torch.clamp((x + 1.0) / 2.0, 0.0, 1.0)
-    size, c = d["image_size"], d["channels"]
-    return out.reshape(b, size, size, d["num_frames"], c).permute(0, 3, 1, 2, 4)
+def unet_flops(cfg: dict, batch: int = 1) -> float:
+    """Operations of one UNet call at ``batch``, as ``PlainUNet`` computes
+    them (``perfbench/flops.py`` says what is counted)."""
+    nf = cfg["model"]["ngf"]
+    hc = cfg["model"]["n_head_channels"]
+    total = 2.0 * nf * 4 * nf + 2.0 * 4 * nf * 4 * nf       # the two time-embedding denses
+    for p in module_plan(cfg):
+        kind = p["kind"]
+        if kind == "conv":
+            total += conv_flops(p["in"], p["out"], 3, p["res"], p["res"])
+        elif kind == "res":
+            r_in = p["res"]
+            r_out = r_in * 2 if p.get("up") else r_in // 2 if p.get("down") else r_in
+            # the two adaptive norms' dense projections of the embedding
+            total += 2.0 * 4 * nf * 2 * p["in"] + 2.0 * 4 * nf * 2 * p["out"]
+            if p.get("up") or p.get("down"):
+                # FIR on the block's input and on its skip, each per channel
+                total += 2 * 2.0 * FIR_TAPS * p["in"] * r_out * r_out
+            total += conv_flops(p["in"], p["out"], 3, r_out, r_out)
+            total += conv_flops(p["out"], p["out"], 3, r_out, r_out)
+            if p["in"] != p["out"] or p.get("up") or p.get("down"):
+                total += conv_flops(p["in"], p["out"], 1, r_out, r_out)
+        elif kind == "attn":
+            t, c = p["res"] ** 2, p["ch"]
+            heads = attention_heads(c, hc)
+            total += 4 * 2.0 * t * c * c + attention_flops(1, heads, t, c // heads)
+    return total * batch

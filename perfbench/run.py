@@ -8,8 +8,9 @@ cell's end-to-end metrics, or with ``--trace 1`` its per-layer metrics),
 ``device``, with ``--trace 1`` a ``breakdown``, and last ``checks``, the
 numbers compared with the reference beside their limits (also the last lines
 of standard error). Exits 1 and prints no result where it cannot measure: no
-card, fewer cards than the cell asks for, or modules of JAX or of the JAX
-package loaded.
+card, fewer cards than the cell asks for, a configuration setting what its
+plain reference does not implement or a UNet of other widths than it states,
+or modules of JAX or of the JAX package loaded.
 """
 
 from __future__ import annotations

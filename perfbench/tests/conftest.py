@@ -3,7 +3,7 @@
 ``tiny_root`` is a checkout-shaped directory holding ``BENCHMARK.json`` and a
 copy of ``perfbench/`` with one more configuration (``tiny-f32``: the flagship
 settings at 64x64 frames, ngf 8, two levels, 4 sampling steps, ELIC at N 16,
-M 40) and two more cells, added by files and entries only, as a later change
+M 40; 65,167 UNet parameters; the reference ``unet``) and two more cells, added by files and entries only, as a later change
 adds a cell: ``tiny.gop`` (the GOP runner, 12 frames forced 5, 0, 5) and
 ``tiny.lock`` (the lockstep runner at B = 2). Their limits are the float32
 cell's.
@@ -23,6 +23,7 @@ REPO = Path(__file__).resolve().parents[2]
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 F32_CELL = "city-f32.gop-worst"
+TINY_PARAMS_MILLIONS = 0.065167
 
 
 def add_tiny_cells(root: Path) -> None:
@@ -30,6 +31,7 @@ def add_tiny_cells(root: Path) -> None:
     pb = root / "perfbench"
     c = json.loads((pb / "configs/ncsnpp-city-f32.json").read_text())
     c["name"] = "tiny-f32"
+    c["params_millions"] = TINY_PARAMS_MILLIONS
     cc = c["config"]
     cc["data"]["image_size"] = 64
     cc["model"].update(ngf=8, ch_mult=[1, 2], num_res_blocks=1, attn_resolutions=[32],

@@ -1,4 +1,6 @@
-"""``perfbench/flops.py`` against a hand count and against ``FlopCounterMode``."""
+"""The configurations' counts (their reference modules' ``unet_flops`` and
+``attention_launches`` over ``perfbench/flops.py``'s arithmetic) against a
+hand count, against ``FlopCounterMode``, and frozen."""
 
 from __future__ import annotations
 
@@ -10,8 +12,17 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from conftest import REPO
-from perfbench.flops import attention_bytes, attention_flops, unet_flops
-from perfbench.reference.unet import PlainUNet, module_plan
+from perfbench.flops import attention_bytes, attention_flops, unet_attention_bound_s
+from perfbench.manifest import Manifest
+from perfbench.reference.unet import PlainUNet, module_plan, unet_flops
+
+# one call of the 262.1M concat NCSN++ at 128x128: its operations at B = 1 and
+# B = 8, its attention launches (heads, tokens, head dim), and their least time
+# in float32 (B = 1) and bf16 (B = 8) on an H100's peaks
+FROZEN_FLOPS = {1: 345625362432.0, 8: 2765002899456.0}
+FROZEN_LAUNCHES = ([(2, 1024, 192)] * 2 + [(3, 256, 192)] * 2 + [(4, 64, 192)] * 4
+                   + [(3, 256, 192), (2, 1024, 192)])
+FROZEN_BOUND_S = {(1, 4, 67e12): 7.981697910447761e-05, (8, 2, 989e12): 5.129193935390791e-05}
 
 
 def tiny_cfg():
@@ -82,3 +93,17 @@ def test_counts_equal_flop_counter_on_the_plain_modules(size, mult, attn):
 def test_attention_counts():
     assert attention_flops(8, 2, 1024, 192) == 4 * 8 * 2 * 1024 * 1024 * 192
     assert attention_bytes(1, 3, 256, 192, 2) == 4 * 3 * 256 * 192 * 2
+
+
+@pytest.mark.parametrize("config", ["ncsnpp-city-f32", "ncsnpp-city-bf16"])
+def test_counts_of_the_configurations_are_frozen(config):
+    m = Manifest(REPO)
+    c = m.config({"config": config})
+    ref = m.reference(c)
+    cfg = c["config"]
+    for batch, flops in FROZEN_FLOPS.items():
+        assert ref.unet_flops(cfg, batch) == flops
+    launches = ref.attention_launches(cfg)
+    assert launches == FROZEN_LAUNCHES
+    for (batch, itemsize, peak), bound in FROZEN_BOUND_S.items():
+        assert unet_attention_bound_s(launches, batch, itemsize, peak, 3.35e12) == bound

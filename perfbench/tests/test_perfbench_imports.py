@@ -36,10 +36,12 @@ def test_harness_and_reference_load_no_jax_and_no_jax_package():
 
 
 def test_reference_loads_nothing_of_the_program():
-    loaded = top_level_modules(["perfbench.reference.unet", "perfbench.reference.lpips",
-                                "perfbench.reference.elic", "perfbench.reference.precision",
-                                "perfbench.flops", "perfbench.peaks", "perfbench.timeline",
-                                "perfbench.video", "perfbench.weights"])
+    references = sorted(f"perfbench.reference.{p.stem}"
+                        for p in (REPO / "perfbench/reference").glob("*.py"))
+    assert {"perfbench.reference.unet", "perfbench.reference.ddpm"} <= set(references)
+    loaded = top_level_modules(references + ["perfbench.flops", "perfbench.peaks",
+                                             "perfbench.timeline", "perfbench.video",
+                                             "perfbench.weights"])
     assert not loaded & (FORBIDDEN | {"tvc_torch"})
 
 

@@ -8,8 +8,9 @@ import pytest
 
 from conftest import REPO
 from perfbench import timeline as tl
-from perfbench.flops import attention_launches, unet_attention_bound_s, unet_flops
+from perfbench.flops import unet_attention_bound_s
 from perfbench.manifest import Manifest
+from perfbench.reference.unet import attention_launches, unet_flops
 
 KERNELS = [("conv", 0.0, 10.0), ("gn", 5.0, 15.0), ("attention_fwd<1>", 20.0, 30.0),
            ("conv", 40.0, 45.0), ("attention_fwd<1>", 50.0, 60.0)]
@@ -36,7 +37,8 @@ def fake_run(**kw):
                                 config=cfg, batch=1, peaks={"float32": 67e12, "bfloat16": 989e12,
                                                             "hbm_bytes_s": 3.35e12},
                                 predictor=types.SimpleNamespace(n_steps=101), unet_calls=707,
-                                peak_bytes=3 * 2 ** 30, setup_s=12.5)
+                                peak_bytes=3 * 2 ** 30, setup_s=12.5,
+                                reference=Manifest(REPO).reference(cfg))
     spans = [("generate", 100.0, 102.0), ("score", 102.0, 102.1), ("keyframe", 102.2, 102.4),
              ("generate", 102.5, 104.5), ("generate", 90.0, 92.0)]  # the last: warm-up
     run.recorder = types.SimpleNamespace(spans=spans)
@@ -66,8 +68,9 @@ def test_device_metrics():
     # kernels starting inside the one generate range: 10 + 10 + 10 us over 101 calls
     assert metric("unet_device_ms")(run) == pytest.approx(30.0 / 1e3 / 101)
     cfg = run.config["config"]
-    calls = 2 / len(attention_launches(cfg))
-    bound = calls * unet_attention_bound_s(cfg, 1, 4, 67e12, 3.35e12)
+    launches = attention_launches(cfg)
+    calls = 2 / len(launches)
+    bound = calls * unet_attention_bound_s(launches, 1, 4, 67e12, 3.35e12)
     assert metric("attn_roofline_pct")(run) == pytest.approx(100 * bound / 20e-6)
     assert metric("unet_mfu_pct")(run) == pytest.approx(
         100 * unet_flops(cfg, 1) * 707 / 10.0 / 67e12)
