@@ -206,6 +206,10 @@ non-zero and prints no result; nothing runs on the CPU.
     python3 chip_smoke.py --phase19-only [--zoo-train-largest]   # phases 1-3 and 19, no result
     python3 chip_smoke.py --groupnorm-only   # phases 1-2 and the GroupNorm kernel at B = 1
                                              # and 8, in the full-width UNet too; no result
+    python3 chip_smoke.py --spade-only   # phases 1-2, the GroupNorm kernel's SPADE entry
+                                         # at the SPADE net's 71 norms (float32 B = 1, bf16
+                                         # B = 1 and 8) and in its full-width UNet, then
+                                         # phase 18's SPADE rows; no result
 """
 
 from __future__ import annotations
@@ -241,6 +245,10 @@ ZOO_GOP_FRAMES = 7  # the keyframe pair and one update of 5 frames, or more afte
 # GroupNorm kernel launches of one flagship UNet call (``ncsnpp.groupnorm_shapes``:
 # 70 ``GetActNorm`` chains, 10 attention-block norms and the final ``actnorm``)
 GN_PER_CALL = 81
+# a SPADE call's modulated norms (the SPADE entry of the GroupNorm kernel), and
+# its attention blocks' norms (the plain entry)
+SPADE_PER_CALL = 71
+SPADE_GN_PER_CALL = 10
 # the 3-D nets fold their frames into the spatial attention's batch: b = 7
 # (n_frames) on the way down and in the middle, 5 (num_frames) on the way up;
 # launches per UNet call at each level
@@ -2316,6 +2324,153 @@ def phase_groupnorm(torch, layers):
     return result
 
 
+SPADE_ONLY = "--spade-only"  # phases 1-2, the SPADE norm kernel and phase 18's SPADE rows
+
+
+def spade_shapes():
+    """(channels, resolution, with the time term) of each modulated norm of
+    one flagship-width SPADE call, SPADE_PER_CALL of them."""
+    from tvc_torch.core.config import Config
+    from tvc_torch.models.diffusion.ncsnpp import NCSNppSpec, groupnorm_shapes
+
+    shapes = groupnorm_shapes(NCSNppSpec.from_config(Config()), attention=False)
+    if len(shapes) != SPADE_PER_CALL:
+        fail(f"the SPADE net has {len(shapes)} modulated norms, not {SPADE_PER_CALL}")
+    return shapes
+
+
+def spade_rows(torch, groupnorm, shapes, dtype, b):
+    """The GroupNorm kernel's SPADE entry at each distinct shape of one SPADE
+    call at batch b, held to ``groupnorm_error``'s tolerance and to
+    bit-identical reruns: ms as a replayed graph against the bound (x, gamma
+    and beta read once, y written once at HBM_BPS) and the plain composition
+    it replaces (``group_norm_plain``: ATen's norm, then the modulation, the
+    scale/shift and SiLU, one launch an op)."""
+    g = torch.Generator(device="cuda").manual_seed(b + 71)
+    rows = []
+    for c, r, emb in sorted(set(shapes)):
+        x = (torch.randn((b, c, r, r), generator=g, device="cuda") * 2 + 0.3).to(dtype)
+        gamma, beta = ((torch.randn((b, c, r, r), generator=g, device="cuda") * 0.3).to(dtype)
+                       for _ in range(2))
+        scale = shift = None
+        if emb:
+            scale, shift = (torch.randn((b, 2 * c), generator=g, device="cuda") * 0.3).to(
+                dtype).chunk(2, dim=1)
+        args = (x, 32, 1e-6, None, None, scale, shift, True, dtype)
+        kw = {"gamma": gamma, "beta": beta}
+        with torch.no_grad():
+            out = groupnorm.group_norm_act(*args, **kw)
+            ref = groupnorm.group_norm_plain(*args, **kw)
+            again = groupnorm.group_norm_act(*args, **kw)
+            torch.cuda.synchronize()
+            err, share, ok = groupnorm_error(torch, out, ref)
+            if not ok:
+                fail(f"spade norm {c}x{r} B={b} {dtype}: kernel against plain max |diff| {err}, "
+                     f"differing share {share}, max |plain| {ref.float().abs().max().item()}")
+            if not torch.equal(out, again):
+                fail(f"spade norm {c}x{r} B={b} {dtype}: two launches differ")
+            iters = 20 if b * c * r * r >= 1 << 22 else 100
+            ms = graph_ms(torch, lambda: groupnorm.group_norm_act(*args, **kw), iters)
+            plain_ms = graph_ms(torch, lambda: groupnorm.group_norm_plain(*args, **kw), iters)
+        plan = groupnorm.groupnorm_plan(b, c, r * r, 32, dtype)
+        bound = 4.0 * x.numel() * x.element_size() / HBM_BPS * 1e3
+        rows.append({"C": c, "res": r, "emb": emb, "B": b,
+                     "dtype": str(dtype).replace("torch.", ""),
+                     "per_unet_call": shapes.count((c, r, emb)), "splits": plan.splits,
+                     "blocks": plan.blocks, "max_abs_err": err,
+                     "max_abs_plain": ref.float().abs().max().item(), "differ_share": share,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "share_of_bound": bound / ms})
+        log("spade_shape " + json.dumps(rows[-1]))
+    return rows
+
+
+def spade_per_call(rows):
+    """``spade_rows`` summed over one SPADE call's modulated norms."""
+    tot = {k: sum(r[k] * r["per_unet_call"] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    tot["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
+    tot["launches_per_unet_call"] = sum(r["per_unet_call"] for r in rows)
+    return tot
+
+
+def spade_unet_calls(torch, groupnorm):
+    """The full-width SPADE UNet (weights drawn on the card) with the SPADE
+    entry against the plain composition, float32 and bf16 at B = 1: within
+    GN_UNET_REL_TOL, SPADE_PER_CALL + SPADE_GN_PER_CALL launches a call, ms
+    per call as a replayed graph, and each call's longest kernels."""
+    from unittest import mock
+
+    from tvc_torch.models.diffusion import spade
+
+    cfg, _ = zoo_config({"model.spade": True})
+    model = device_seeded_predictor(torch, cfg).model.eval()
+    g = torch.Generator(device="cuda").manual_seed(17)
+    size, ch = cfg.data.image_size, cfg.data.channels
+    x = torch.randn((1, size, size, ch * cfg.data.num_frames), generator=g, device="cuda")
+    cond = torch.rand((1, size, size, ch * cfg.data.num_frames_cond), generator=g,
+                      device="cuda") * 2 - 1
+    t = torch.tensor([500], device="cuda")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        net = model if dtype == torch.float32 else model.with_dtype(dtype)
+        xs = x.to(dtype)
+        tag = f"{str(dtype).replace('torch.', '')}_B1"
+        with torch.no_grad():
+            groupnorm.reset_launches()
+            got = net(xs, t, cond)
+            launches = (groupnorm.spade_launches, groupnorm.launches)
+            with mock.patch.object(spade, "group_norm_act", groupnorm.group_norm_plain):
+                ref = net(xs, t, cond)
+                plain_ms = graph_ms(torch, lambda: net(xs, t, cond), 3)
+            kernel_ms = graph_ms(torch, lambda: net(xs, t, cond), 3)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+        out[tag] = {"spade_launches_a_call": launches[0], "groupnorm_launches_a_call": launches[1],
+                    "max_abs_err": err, "max_abs_plain": scale, "kernel_ms": kernel_ms,
+                    "plain_ms": plain_ms}
+        log(f"spade unet {tag}: " + json.dumps(out[tag]))
+        if launches != (SPADE_PER_CALL, SPADE_GN_PER_CALL):
+            fail(f"the SPADE UNet {tag} launched the SPADE entry {launches[0]} and the plain "
+                 f"entry {launches[1]} times, not {SPADE_PER_CALL} and {SPADE_GN_PER_CALL}")
+        tol = GN_UNET_REL_TOL[str(dtype).replace("torch.", "")]
+        if not (torch.isfinite(got).all() and scale > 1e-2 and err <= tol * scale):
+            fail(f"the SPADE UNet {tag} through the SPADE entry disagrees with the plain "
+                 f"composition: max |diff| {err}, max |plain| {scale} (tol {tol} x max |plain|)")
+        with torch.no_grad():
+            for line in profile_unet(torch, lambda: net(xs, t, cond)):
+                log(f"spade unet {tag} kernel {line}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spade(torch):
+    """The SPADE entry of the GroupNorm kernel at every modulated norm of the
+    SPADE net, float32 at B = 1 and bf16 at B = 1 and 8, summed over a call's
+    71 norms, then inside the full-width SPADE UNet; rows to
+    chiprun_out/spade.json."""
+    from tvc_torch.ops import groupnorm
+
+    shapes = spade_shapes()
+    result = {"rows": [], "per_call": {}}
+    for dtype, b in ((torch.float32, 1), (torch.bfloat16, 1), (torch.bfloat16, 8)):
+        rows = spade_rows(torch, groupnorm, shapes, dtype, b)
+        result["rows"] += rows
+        tag = f"{str(dtype).replace('torch.', '')}_B{b}"
+        result["per_call"][tag] = tot = spade_per_call(rows)
+        log(f"spade norms per UNet call {tag}: " + json.dumps(tot))
+        if not tot["ms"] < tot["plain_ms"]:
+            fail(f"the SPADE entry takes {tot['ms']} ms a call {tag}, the plain composition "
+                 f"{tot['plain_ms']}")
+    result["unet"] = spade_unet_calls(torch, groupnorm)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "spade.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
 KERNELS_ONLY = "--kernels-only"  # phases 1-3 alone, for bring-up runs; prints no result
 ZOO_ONLY = "--zoo-only"  # phases 1-3 and 18 alone, for bring-up runs; prints no result
 
@@ -2730,6 +2885,7 @@ def phase_zoo_arch(torch, attn, layers, name, mods, millions, coder, lpips, vide
     from unittest import mock
 
     import tvc_torch.cli as cli
+    from tvc_torch.ops import groupnorm
     from tvc_torch.pipeline.sender import Sender, run_gop
 
     cfg, config_mods = zoo_config(mods)
@@ -2762,9 +2918,12 @@ def phase_zoo_arch(torch, attn, layers, name, mods, millions, coder, lpips, vide
     row["allocated_gb_before_call"] = torch.cuda.memory_allocated() / 1e9 - row["weights_gb"]
     with torch.no_grad():
         before = attn.launches
+        gn_before, spade_before = groupnorm.launches, groupnorm.spade_launches
         out = model(x, t, cond)
         torch.cuda.synchronize()
         row["call_attention_launches"] = attn.launches - before
+        row["call_groupnorm_launches"] = groupnorm.launches - gn_before
+        row["call_spade_launches"] = groupnorm.spade_launches - spade_before
         row["call_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         with mock.patch.object(layers, "attention", attn.attention_plain):
             ref = model(x, t, cond)
@@ -2785,6 +2944,11 @@ def phase_zoo_arch(torch, attn, layers, name, mods, millions, coder, lpips, vide
     if row["call_attention_launches"] != per_call:
         fail(f"{name}: one call launched {row['call_attention_launches']} attention kernels, "
              f"not {per_call}")
+    if name == "spade" and (row["call_spade_launches"], row["call_groupnorm_launches"]) != (
+            SPADE_PER_CALL, SPADE_GN_PER_CALL):
+        fail(f"spade: one call launched the SPADE norm kernel {row['call_spade_launches']} and "
+             f"the GroupNorm kernel {row['call_groupnorm_launches']} times, not "
+             f"{SPADE_PER_CALL} and {SPADE_GN_PER_CALL}")
     if not row["kernel_vs_plain_rel"] <= UNET_REL_TOL:
         fail(f"{name}: the call through the kernel disagrees with the plain attention: "
              f"rel {row['kernel_vs_plain_rel']} > {UNET_REL_TOL}")
@@ -2797,20 +2961,25 @@ def phase_zoo_arch(torch, attn, layers, name, mods, millions, coder, lpips, vide
         sender = Sender(GOP_THRESHOLD, cfg, predictor, lpips)
         torch.cuda.reset_peak_memory_stats()
         attn.reset_launches()
+        groupnorm.reset_launches()
         gop, wall = timed(torch, lambda: run_gop(sender, coder, video[0], cfg.seed,
                                                   ZOO_GOP_FRAMES, cfg.codec.patch,
                                                   keep_streams=True))
         n = read_launches(attn)
+        spade_n = groupnorm.spade_launches
         launches[f"zoo_{name}_gop"] = n
         # received in a fresh process at the end of the phase (``phase_zoo``)
         row["gop"] = {"sender_wall_s": wall, "n_updates": gop.n_updates,
                       "accepts": gop.accepts, "update_s": gop.update_s, "bits": gop.bits,
-                      "attention_launches": n,
+                      "attention_launches": n, "spade_launches": spade_n,
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
         row["to_receive"] = (gop, cfg, ["codec.entropy_backend=device", *config_mods])
         if n != per_update * gop.n_updates:
             fail(f"{name}: the GOP launched {n} attention kernels over {gop.n_updates} "
                  f"updates, not {per_update} each")
+        if name == "spade" and spade_n != SPADE_PER_CALL * predictor.n_steps * gop.n_updates:
+            fail(f"spade: the GOP launched the SPADE norm kernel {spade_n} times over "
+                 f"{gop.n_updates} updates, not {SPADE_PER_CALL * predictor.n_steps} each")
         frames = gop.x_ge[0]
         if not np.isfinite(frames).all() or frames.min() < 0 or frames.max() > 1:
             fail(f"{name}: the GOP's frames are not finite frames in [0, 1]")
@@ -2825,6 +2994,7 @@ def phase_zoo_arch(torch, attn, layers, name, mods, millions, coder, lpips, vide
     entry = graph_at(predictor, 1)
     replays = entry.replays
     attn.reset_launches()
+    groupnorm.reset_launches()
     graphed, g_wall, g_dev = update_times(
         torch, lambda: predictor.generate(cond1, x_init=x_init, noise=noise))
     eager, e_wall, e_dev = update_times(
@@ -2833,7 +3003,7 @@ def phase_zoo_arch(torch, attn, layers, name, mods, millions, coder, lpips, vide
     update = {"graph_wall_s": g_wall, "graph_event_s": g_dev, "eager_wall_s": e_wall,
               "eager_event_s": e_dev, "capture_s": entry.capture_s,
               "pool_gb": entry.pool_bytes / 1e9, "replays_in_update": entry.replays - replays,
-              "attention_launches": attn.launches,
+              "attention_launches": attn.launches, "spade_launches": groupnorm.spade_launches,
               "byte_identical": graphed.cpu().numpy().tobytes() == eager.cpu().numpy().tobytes()}
     log(f"zoo_graph_vs_eager {name} " + json.dumps(update))
     row["update"] = update
@@ -2845,6 +3015,9 @@ def phase_zoo_arch(torch, attn, layers, name, mods, millions, coder, lpips, vide
     if attn.launches != 2 * per_update:
         fail(f"{name}: the two updates launched {attn.launches} attention kernels, not "
              f"2 x {per_update}")
+    if name == "spade" and update["spade_launches"] != 2 * SPADE_PER_CALL * predictor.n_steps:
+        fail(f"spade: the two updates launched the SPADE norm kernel "
+             f"{update['spade_launches']} times, not 2 x {SPADE_PER_CALL * predictor.n_steps}")
     if not torch.isfinite(graphed).all() or graphed.min() < 0 or graphed.max() > 1:
         fail(f"{name}: the update's frames are not finite frames in [0, 1]")
     del predictor, model, graphed, eager, entry
@@ -2930,17 +3103,19 @@ def phase_zoo_library(torch):
     return rows
 
 
-def phase_zoo(torch, attn, layers, coder, lpips, video):
+def phase_zoo(torch, attn, layers, coder, lpips, video, zoo=ZOO, library=True):
     """Phase 18: the SPADE, 3-D and pseudo-3-D NCSN++ at the flagship widths
-    (18a-c, ``phase_zoo_arch``), the library families on the card (18d), then
-    18b's receivers, together in fresh processes (for the script's time)."""
+    (18a-c, ``phase_zoo_arch``; ``zoo`` a subset of ZOO), the library families
+    on the card (18d, unless not ``library``), then 18b's receivers, together
+    in fresh processes (for the script's time)."""
     rows, launches = {}, {}
-    for name, mods, millions in ZOO:
+    for name, mods, millions in zoo:
         rows[name], more = phase_zoo_arch(torch, attn, layers, name, mods, millions, coder,
                                           lpips, video)
         launches.update(more)
-    rows["library"] = phase_zoo_library(torch)
-    sent = [(name, rows[name].pop("to_receive")) for name, *_ in ZOO
+    if library:
+        rows["library"] = phase_zoo_library(torch)
+    sent = [(name, rows[name].pop("to_receive")) for name, *_ in zoo
             if "to_receive" in rows[name]]
     handles = [start_receiver(gop, cfg, coder, mods, f"receiver {name}")
                for name, (gop, cfg, mods) in sent]
@@ -3398,6 +3573,22 @@ def main() -> None:
     if GROUPNORM_ONLY in sys.argv[1:]:
         phase_groupnorm(torch, layers)
         log(f"groupnorm-only: the script took {time.perf_counter() - t_start:.1f} s")
+        return
+    if SPADE_ONLY in sys.argv[1:]:
+        import tvc_torch.cli as cli
+        from tvc_torch.entropy import rans
+
+        phase_spade(torch)
+        rans.build(force=True)
+        cfg = Config()
+        cfg.codec.entropy_backend = "device"
+        t18 = time.perf_counter()
+        zoo, zoo_launches = phase_zoo(torch, attn, layers, cli.build_coder(cfg, "cuda"),
+                                      LPIPSMetric.create(seed=0, device="cuda"),
+                                      synthetic_video(n=GOP_FRAMES), zoo=ZOO[:1], library=False)
+        log("launches " + json.dumps(zoo_launches))
+        log(f"spade-only: phase 18's SPADE rows took {time.perf_counter() - t18:.1f} s, the "
+            f"script {time.perf_counter() - t_start:.1f} s")
         return
     ptxas = {name: ptxas_entries(reports[name]) for name in ("attention", "attention_tc")}
     log("ptxas attention_fwd<float4 cols a lane>, attention_tc<64-col blocks, p.v terms>: "

@@ -315,6 +315,96 @@ def test_groupnorm_kernel_5d_and_spade_match_plain(cuda, dtype):
     _gn_close(got, groupnorm.group_norm_plain(x, 32, 1e-6, dtype=dtype))
 
 
+# the SPADE NCSN++'s 71 modulated norms of a flagship-width call: 20
+# (channels, resolution) pairs, each run here with and without the time term
+SPADE_SHAPES = sorted({(c, r) for c, r, _ in
+                       groupnorm_shapes(NCSNppSpec.from_config(Config()), attention=False)})
+
+
+def _spade_inputs(b, c, r, dtype, emb, seed=0):
+    """x as ``_gn_inputs``; gamma and beta ~ 0.3 N(0, 1) of x's shape, as the
+    SPADE net's convolutions write them (contiguous); scale and shift with
+    ``emb``."""
+    x, _, _, scale, shift = _gn_inputs(b, c, (r, r), dtype, "emb" if emb else "param_free",
+                                       seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    gamma, beta = ((torch.randn(x.shape, generator=g, device="cuda") * 0.3).to(dtype)
+                   for _ in range(2))
+    return x, scale, shift, gamma, beta
+
+
+@pytest.mark.parametrize("emb", [True, False], ids=["emb", "no_emb"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SPADE_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_groupnorm_spade_kernel_matches_plain_at_spade_shapes(cuda, shape, dtype, emb):
+    """Each modulated norm of the SPADE net at B = 1, one launch of the SPADE
+    entry, against the plain composition (``_gn_close``'s tolerances: the
+    modulation's roundings are the composition's, so only the statistics'
+    order differs); a rerun gives the same bits."""
+    c, r = shape
+    x, scale, shift, gamma, beta = _spade_inputs(1, c, r, dtype, emb, seed=c + r)
+    before, plain_before = groupnorm.spade_launches, groupnorm.launches
+    got = groupnorm.group_norm_act(x, 32, 1e-6, None, None, scale, shift, True, dtype,
+                                   gamma=gamma, beta=beta)
+    assert groupnorm.spade_launches == before + 1 and groupnorm.launches == plain_before
+    _gn_close(got, groupnorm.group_norm_plain(x, 32, 1e-6, None, None, scale, shift, True, dtype,
+                                              gamma=gamma, beta=beta))
+    assert torch.equal(got, groupnorm.group_norm_act(x, 32, 1e-6, None, None, scale, shift, True,
+                                                     dtype, gamma=gamma, beta=beta))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_groupnorm_spade_kernel_layouts_and_modes_match_plain(cuda, dtype, monkeypatch):
+    """The SPADE entry at B = 8, on a channels-last x, without SiLU, on
+    channels-last gamma and beta (copied contiguous by the wrapper), a ragged
+    shape (one element a load) and both TVC_GN_BF16_IO settings."""
+    for io in ("0", "1"):
+        monkeypatch.setenv("TVC_GN_BF16_IO", io)
+        for b, c, r, silu in ((8, 768, 8, True), (1, 384, 64, False), (3, 64, 5, True)):
+            x, scale, shift, gamma, beta = _spade_inputs(b, c, r, dtype, True, seed=b)
+            want = groupnorm.group_norm_plain(x, 32, 1e-6, None, None, scale, shift, silu,
+                                              dtype, gamma=gamma, beta=beta)
+            cl = torch.channels_last
+            for xx, gg, bb in ((x, gamma, beta), (x.contiguous(memory_format=cl), gamma, beta),
+                               (x, gamma.contiguous(memory_format=cl),
+                                beta.contiguous(memory_format=cl))):
+                _gn_close(groupnorm.group_norm_act(xx, 32, 1e-6, None, None, scale, shift, silu,
+                                                   dtype, gamma=gg, beta=bb), want)
+
+
+def test_groupnorm_spade_rejects_bad_input(cuda):
+    x = torch.randn(2, 64, 8, 8, device="cuda")
+    with pytest.raises(ValueError):  # gamma without beta
+        groupnorm.group_norm_act(x, 32, 1e-6, gamma=x)
+    with pytest.raises(ValueError):  # gamma of another shape
+        groupnorm.group_norm_act(x, 32, 1e-6, gamma=x[:1], beta=x[:1])
+    with pytest.raises(ValueError):  # gamma in another dtype
+        groupnorm.group_norm_act(x, 32, 1e-6, gamma=x.bfloat16(), beta=x.bfloat16())
+    with pytest.raises(ValueError):  # the SPADE norm takes no affine weights
+        groupnorm.group_norm_act(x, 32, 1e-6, torch.ones(64, device="cuda"),
+                                 torch.zeros(64, device="cuda"), gamma=x, beta=x)
+
+
+def test_groupnorm_spade_gradient_matches_plain_autograd(cuda):
+    """Under autograd the SPADE entry's output carries the plain composition's
+    gradient, gamma's and beta's included (SPADE training)."""
+    x, scale, shift, gamma, beta = (t.detach().clone().requires_grad_() for t in
+                                    _spade_inputs(2, 384, 32, torch.float32, True, seed=5))
+    leaves = [x, scale, shift, gamma, beta]
+    dy = torch.randn_like(x)
+    before = groupnorm.spade_launches
+    out = groupnorm.group_norm_act(x, 32, 1e-6, None, None, scale, shift, True,
+                                   gamma=gamma, beta=beta)
+    assert groupnorm.spade_launches == before + 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, dy)
+    ref = groupnorm.group_norm_plain(x, 32, 1e-6, None, None, scale, shift, True,
+                                     gamma=gamma, beta=beta)
+    want = torch.autograd.grad(ref, leaves, dy)
+    _gn_close(out.detach(), ref.detach())
+    for a, e in zip(got, want):
+        assert (a - e).abs().max().item() <= 1e-4 * e.abs().max().item()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_groupnorm_kernel_reruns_are_bit_identical(cuda, dtype):
     """Split slices (cluster joins) and packed ones give the same bits twice."""
@@ -415,6 +505,87 @@ def test_unet_call_launches_every_groupnorm_once(cuda):
     assert groupnorm.launches == 4 * per_call
     assert all(torch.equal(o, outs[0]) for o in outs)
     assert graphed.stats()[next(iter(graphed.stats()))]["groupnorm_launches"] == per_call
+
+
+def _spade_unet():
+    """A narrow SPADE NCSN++ of the flagship's topology (every weight
+    N(0, 0.08)) on the card: 71 modulated norms, 10 attention blocks."""
+    cfg = Config()
+    cfg.data.image_size = 32
+    cfg.model.ngf = 16
+    cfg.model.n_head_channels = 8
+    cfg.model.attn_resolutions = (4, 8, 16)
+    cfg.model.spade = True
+    cfg.model.spade_dim = 16
+    model = UNetMoreDDPM(cfg, device="cpu").eval()
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.08)
+    return cfg, model.to("cuda")
+
+
+def test_spade_unet_call_launches_the_spade_kernel_once_a_norm(cuda):
+    """A SPADE call launches the SPADE entry 71 times, the plain entry 10
+    times (the attention blocks' norms) and attention 10 times, eager and
+    counted at each graph replay, in float32 and bf16, and agrees with the
+    plain composition inside the net."""
+    from unittest import mock
+
+    from tvc_torch.models.diffusion import spade
+    from tvc_torch.samplers.graph import GraphedEps
+
+    cfg, model = _spade_unet()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((1, 32, 32, 15), generator=g, device="cuda")
+    cond = torch.rand((1, 32, 32, 6), generator=g, device="cuda") * 2 - 1
+    t = torch.tensor([10], device="cuda")
+    with torch.no_grad():
+        for net, tol in ((model, 1e-4), (model.with_dtype(torch.bfloat16), 5e-2)):
+            xs = x.to(net.dtype)
+            groupnorm.reset_launches()
+            attn.reset_launches()
+            out = net(xs, t, cond)
+            assert (groupnorm.spade_launches, groupnorm.launches, attn.launches) == (71, 10, 10)
+            with mock.patch.object(spade, "group_norm_act", groupnorm.group_norm_plain):
+                ref = net(xs, t, cond)
+            scale = ref.float().abs().max().item()
+            assert scale > 1e-2 and (out.float() - ref.float()).abs().max().item() <= tol * scale
+        graphed = GraphedEps(model)
+        groupnorm.reset_launches()
+        outs = [graphed(x, t, cond) for _ in range(4)]  # eager, capture + replay, 2 replays
+    assert (groupnorm.spade_launches, groupnorm.launches) == (4 * 71, 4 * 10)
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    (st,) = graphed.stats().values()
+    assert st["spade_launches"] == 71 and st["groupnorm_launches"] == 10
+
+
+def test_spade_update_through_the_graph_equals_eager_byte_for_byte(cuda):
+    """A SPADE DDPM update through its graphed UNet gives the eager loop's
+    frames byte for byte, three times, with 71 SPADE launches a UNet call."""
+    from tvc_torch.core.runtime import batched_conv_algorithms
+    from tvc_torch.pipeline.predictor import FramePredictor
+    from tvc_torch.pipeline.transforms import data_transform, inverse_data_transform
+
+    cfg, model = _spade_unet()
+    cfg.model.num_classes = 100
+    cfg.sampling.subsample = 10
+    pred = FramePredictor(cfg, model)
+    cond = torch.rand((1, 32, 32, 6), generator=torch.Generator(device="cuda").manual_seed(4),
+                      device="cuda")
+    x_init, noise = pred.draws(torch.Generator(device="cuda").manual_seed(5), 1)
+    outs = []
+    for _ in range(3):
+        groupnorm.reset_launches()
+        outs.append(pred.generate(cond, x_init=x_init, noise=noise))
+        assert groupnorm.spade_launches == 71 * pred.n_steps
+    step, warm = pred._split(noise)
+    with torch.no_grad(), batched_conv_algorithms(1, "cuda"):
+        eager = pred._sample(x_init, data_transform(cfg, cond), step, warm,
+                             eps_fn=pred.model)[-1]
+    eager = inverse_data_transform(cfg, eager).reshape(1, 32, 32, 5, 3).permute(0, 3, 1, 2, 4)
+    for out in outs:
+        assert out.cpu().numpy().tobytes() == eager.cpu().numpy().tobytes()
 
 
 # ---------------------------------------------------------------- the codec and the GOP

@@ -98,18 +98,18 @@ def _cases(dtype):
         ("act_affine", lambda: act_aff(x), lambda: old_get_act_norm(act_aff, x, None)),
         ("act3d_emb", lambda: act3(x3, emb), lambda: old_get_act_norm(act3, x3, emb)),
         ("act3d_affine", lambda: act3_aff(x3), lambda: old_get_act_norm(act3_aff, x3, None)),
-        ("spade", lambda: spade(x, seg),
-         lambda: spade.forward.__func__(_OldNorm(spade), x, seg)),
+        ("spade", lambda: spade(x, seg), lambda: old_spade(spade, x, seg)),
     ]
 
 
-class _OldNorm:
-    """A SPADE whose param-free norm is the old composition."""
-
-    def __init__(self, spade):
-        self.param_free_norm = lambda x: old_group_norm_ref(spade.param_free_norm, x)
-        self.mlp_shared, self.mlp_gamma, self.mlp_beta = (spade.mlp_shared, spade.mlp_gamma,
-                                                          spade.mlp_beta)
+def old_spade(spade, x, seg):
+    """``MySPADE`` as it ran before the kernel: the old param-free norm, then
+    the modulation by the conditioning net's gamma and beta."""
+    normalized = old_group_norm_ref(spade.param_free_norm, x)
+    if seg.shape[-2:] != x.shape[-2:]:
+        seg = F.interpolate(seg, size=tuple(x.shape[-2:]), mode="nearest")
+    actv = spade.mlp_shared(seg)
+    return normalized * (1 + spade.mlp_gamma(actv)) + spade.mlp_beta(actv)
 
 
 CASES = ["affine", "param_free", "channels_last", "act_emb", "act_emb_channels_last",

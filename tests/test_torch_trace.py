@@ -155,7 +155,8 @@ def test_off_records_nothing_and_opens_no_profiler_range(runs):
     assert gop.n_updates == len(FORCED) and all(g is not None for g in gops)
     rec = runs[3]
     assert rec["spans"] == []
-    assert set(rec["counters"]) == {"attention.kernel_launches", "groupnorm.kernel_launches"}
+    assert set(rec["counters"]) == {"attention.kernel_launches", "groupnorm.kernel_launches",
+                                    "groupnorm.spade_launches"}
     # the fields the program reports are read all the same
     assert len(gop.update_s) == 7 and len(gop.keyframe_s) == 3 and gop.wall_time > 0
 

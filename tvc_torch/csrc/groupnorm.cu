@@ -14,6 +14,15 @@
 //   y1 = y0 * (1 + scale) + shift      optional, scale and shift per (n, c)
 //   y  = silu(y1)                      optional
 //
+// and a second entry, groupnorm_spade_fwd, for the SPADE NCSN++'s modulated
+// norms (models/diffusion/spade.py): the affine-free GroupNorm y0, then
+// y0 * (1 + gamma) + beta with gamma and beta of x's shape (contiguous), then
+// the optional scale/shift and SiLU above. Both entries share every step but
+// the apply's modulation (groupnorm_body), and so the statistics, the plan and
+// the rounding; the SPADE entry reads gamma and beta once more in the apply,
+// rounds 1 + gamma, the product and the sum as the composition does, and
+// adds two reads of x's size to the bound below.
+//
 // rounding wherever the plain PyTorch composition rounds (tvc_torch/ops/
 // groupnorm.py, group_norm_plain): in bf16 the normalised value, 1 + scale,
 // the product, the sum and SiLU's result are each rounded to bf16, every step
@@ -102,6 +111,8 @@ struct Params {
   void* y;
   const void* weight;  // (C,) float32 or bf16 (PARAMS_BF16), with bias; null without AFFINE
   const void* bias;
+  const void* gamma;   // SPADE: x's shape, contiguous, in the dtype; null otherwise
+  const void* beta;
   const void* scale;   // (N, C) in the dtype, row strides ss0 and ss1; null without EMB
   const void* shift;
   long long ss0, ss1;
@@ -279,11 +290,13 @@ __device__ __forceinline__ void read_vec(float (&v)[V], const T* buf, int ldb, c
   for (int e = 0; e < V; ++e) v[e] = pk.get(e);
 }
 
-// grid (splits * slices), cluster (splits) where splits > 1: block b works on
-// split b % splits of slice b / splits.
+// The body of both entries. grid (splits * slices), cluster (splits) where
+// splits > 1: block b works on split b % splits of slice b / splits.
 // CL: x is channels-last (channels innermost); y is always (N, C, *spatial).
-template <typename T, int V, bool RESIDENT, bool CL>
-__global__ void __launch_bounds__(THREADS) groupnorm_fwd(const Params p) {
+// SPADE: the normalised value is modulated by gamma and beta before the
+// scale/shift (no affine weights).
+template <typename T, int V, bool RESIDENT, bool CL, bool SPADE>
+__device__ __forceinline__ void groupnorm_body(const Params& p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[WARPS];
   __shared__ float part[2];
@@ -464,19 +477,25 @@ __global__ void __launch_bounds__(THREADS) groupnorm_fwd(const Params p) {
   __syncthreads();
 
   // 4. apply, two vectors a thread at a time
+  const long long ybase = (n * p.c + (long long)g * p.cg) * p.hw + p0;
   for (int i0 = tid; i0 < nv; i0 += 2 * THREADS) {
     float v[2][V];
     float4 cf[2];
     long long off[2];
+    Pack<T, V> ga[2], be[2];
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int i = i0 + u * THREADS;
       if (i < nv) {
         const int j = (int)fdiv(vdiv, (unsigned)i);
         const int q = i - j * vpr;
+        off[u] = (long long)j * p.hw + (long long)q * V;
+        if constexpr (SPADE) {
+          ga[u].ldg(reinterpret_cast<const T*>(p.gamma) + ybase + off[u]);
+          be[u].ldg(reinterpret_cast<const T*>(p.beta) + ybase + off[u]);
+        }
         read_vec<T, V, RESIDENT, CL>(v[u], buf, p.ldb, xs, p, j, q);
         cf[u] = coef[j];
-        off[u] = (long long)j * p.hw + (long long)q * V;
       }
     }
 #pragma unroll
@@ -488,6 +507,18 @@ __global__ void __launch_bounds__(THREADS) groupnorm_fwd(const Params p) {
           y[e] = affine ? __fmaf_rn(cf[u].x, v[u][e], cf[u].y)
                         : __fmul_rn(__fsub_rn(v[u][e], cf[u].y), cf[u].x);
         rnd_vec<T, V>(y);
+        if constexpr (SPADE) {  // y * (1 + gamma) + beta, each step rounded
+          float t[V];
+#pragma unroll
+          for (int e = 0; e < V; ++e) t[e] = __fadd_rn(1.f, ga[u].get(e));
+          rnd_vec<T, V>(t);
+#pragma unroll
+          for (int e = 0; e < V; ++e) y[e] = __fmul_rn(y[e], t[e]);
+          rnd_vec<T, V>(y);
+#pragma unroll
+          for (int e = 0; e < V; ++e) y[e] = __fadd_rn(y[e], be[u].get(e));
+          rnd_vec<T, V>(y);
+        }
         if (emb) {
 #pragma unroll
           for (int e = 0; e < V; ++e) y[e] = __fmul_rn(y[e], cf[u].z);
@@ -510,28 +541,49 @@ __global__ void __launch_bounds__(THREADS) groupnorm_fwd(const Params p) {
   }
 }
 
-template <typename T, int V>
-const void* pick_v(bool resident, bool cl) {
-  if (resident)
-    return cl ? reinterpret_cast<const void*>(groupnorm_fwd<T, V, true, true>)
-              : reinterpret_cast<const void*>(groupnorm_fwd<T, V, true, false>);
-  return cl ? reinterpret_cast<const void*>(groupnorm_fwd<T, V, false, true>)
-            : reinterpret_cast<const void*>(groupnorm_fwd<T, V, false, false>);
+template <typename T, int V, bool RESIDENT, bool CL>
+__global__ void __launch_bounds__(THREADS) groupnorm_fwd(const Params p) {
+  groupnorm_body<T, V, RESIDENT, CL, false>(p);
 }
 
-template <typename T>
+template <typename T, int V, bool RESIDENT, bool CL>
+__global__ void __launch_bounds__(THREADS) groupnorm_spade_fwd(const Params p) {
+  groupnorm_body<T, V, RESIDENT, CL, true>(p);
+}
+
+template <typename T, int V, bool SPADE>
+const void* pick_v(bool resident, bool cl) {
+  if constexpr (SPADE) {
+    if (resident)
+      return cl ? reinterpret_cast<const void*>(groupnorm_spade_fwd<T, V, true, true>)
+                : reinterpret_cast<const void*>(groupnorm_spade_fwd<T, V, true, false>);
+    return cl ? reinterpret_cast<const void*>(groupnorm_spade_fwd<T, V, false, true>)
+              : reinterpret_cast<const void*>(groupnorm_spade_fwd<T, V, false, false>);
+  } else {
+    if (resident)
+      return cl ? reinterpret_cast<const void*>(groupnorm_fwd<T, V, true, true>)
+                : reinterpret_cast<const void*>(groupnorm_fwd<T, V, true, false>);
+    return cl ? reinterpret_cast<const void*>(groupnorm_fwd<T, V, false, true>)
+              : reinterpret_cast<const void*>(groupnorm_fwd<T, V, false, false>);
+  }
+}
+
+template <typename T, bool SPADE>
 const void* pick_t(int vec, bool resident, bool cl) {
   constexpr int VW = 16 / sizeof(T);
-  if (vec == VW) return pick_v<T, VW>(resident, cl);
-  if (vec == 1) return pick_v<T, 1>(resident, cl);
+  if (vec == VW) return pick_v<T, VW, SPADE>(resident, cl);
+  if (vec == 1) return pick_v<T, 1, SPADE>(resident, cl);
   return nullptr;
 }
 
-// The instantiation for dtype (0 float32, 1 bf16), vector width, residency
-// and layout, or null.
-const void* pick(int dtype, int vec, bool resident, bool cl) {
-  if (dtype == 0) return pick_t<float>(vec, resident, cl);
-  if (dtype == 1) return pick_t<__nv_bfloat16>(vec, resident, cl);
+// The instantiation for the entry, dtype (0 float32, 1 bf16), vector width,
+// residency and layout, or null.
+const void* pick(bool spade, int dtype, int vec, bool resident, bool cl) {
+  if (dtype == 0)
+    return spade ? pick_t<float, true>(vec, resident, cl) : pick_t<float, false>(vec, resident, cl);
+  if (dtype == 1)
+    return spade ? pick_t<__nv_bfloat16, true>(vec, resident, cl)
+                 : pick_t<__nv_bfloat16, false>(vec, resident, cl);
   return nullptr;
 }
 
@@ -569,31 +621,14 @@ struct DeviceGuard {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-}  // namespace
-
-// x: an (n, c, hw) array of the dtype (0 float32, 1 bf16) on `device`,
-// contiguous, or with cl (n, hw, c) (channels innermost); y: a contiguous
-// (n, c, hw) array of the dtype, not aliasing x. weight, bias: (c,) float32
-// or bf16 (flag 16) with flag 1, else null; scale, shift: (n, c) of the dtype
-// with row strides ss0, ss1 and unit column stride with flag 2, else null.
-// Flags: 1 affine, 2 scale and shift, 4 SiLU, 8 bf16 statistics
-// (TVC_GN_BF16_IO), 16 bf16 weights, 32 two channels a 4-byte load (the
-// plan's `pairs`: cl bf16, channels even a group and in all, x 4-byte
-// aligned; anything else is refused). The plan: `splits` (1..16) blocks a
-// slice in one cluster, each `pix` pixels of every channel of the group (the
-// last fewer, none empty), `vec` elements a load and store of y (1, or 16 bytes' worth:
-// hw and pix multiples of it, y and, without cl, x 16-byte aligned),
-// `resident` 1 to keep the part in shared memory with `ldb` elements between
-// its channel runs (at least pix, a multiple of vec). Launches on `stream`, a
-// stream of `device`, and does not synchronise. Returns the cudaError_t of the
-// launch (0 on success).
-extern "C" int tvc_groupnorm_forward(const void* x, void* y, const void* weight, const void* bias,
-                                     const void* scale, const void* shift, long long ss0,
-                                     long long ss1, int n, int c, long long hw, int groups,
-                                     float eps, int dtype, int flags, int cl, int splits, int pix,
-                                     int vec, int resident, int ldb, int device, void* stream) {
+// Both entries' checks and launch; gamma and beta non-null for the SPADE entry.
+int forward(bool spade, const void* x, void* y, const void* weight, const void* bias,
+            const void* gamma, const void* beta, const void* scale, const void* shift,
+            long long ss0, long long ss1, int n, int c, long long hw, int groups, float eps,
+            int dtype, int flags, int cl, int splits, int pix, int vec, int resident, int ldb,
+            int device, void* stream) {
   const int esize = dtype == 0 ? 4 : 2;
-  const void* fn = pick(dtype, vec, resident != 0, cl != 0);
+  const void* fn = pick(spade, dtype, vec, resident != 0, cl != 0);
   if (fn == nullptr || n < 1 || c < 1 || hw < 1 || groups < 1 || c % groups != 0 ||
       splits < 1 || splits > MAX_SPLITS || pix < 1 || pix % vec != 0 || hw % vec != 0 ||
       (long long)(splits - 1) * pix >= hw || (long long)splits * pix < hw ||
@@ -602,7 +637,9 @@ extern "C" int tvc_groupnorm_forward(const void* x, void* y, const void* weight,
       (vec > 1 && !(aligned16(y) && (cl || aligned16(x)))) ||
       ((flags & AFFINE) && !(weight && bias)) || ((flags & EMB) && !(scale && shift)) ||
       ((flags & CL_PAIRS) && !(cl && dtype == 1 && (c / groups) % 2 == 0 && c % 2 == 0 &&
-                               (reinterpret_cast<uintptr_t>(x) & 3) == 0)))
+                               (reinterpret_cast<uintptr_t>(x) & 3) == 0)) ||
+      (spade && (!gamma || !beta || (flags & AFFINE) ||
+                 (vec > 1 && !(aligned16(gamma) && aligned16(beta))))))
     return (int)cudaErrorInvalidValue;
   const int cg = c / groups;
   const long long slices = (long long)n * groups;
@@ -615,6 +652,8 @@ extern "C" int tvc_groupnorm_forward(const void* x, void* y, const void* weight,
   p.y = y;
   p.weight = weight;
   p.bias = bias;
+  p.gamma = gamma;
+  p.beta = beta;
   p.scale = scale;
   p.shift = shift;
   p.ss0 = ss0;
@@ -655,4 +694,46 @@ extern "C" int tvc_groupnorm_forward(const void* x, void* y, const void* weight,
   err = cudaLaunchKernelExC(&cfg, fn, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x: an (n, c, hw) array of the dtype (0 float32, 1 bf16) on `device`,
+// contiguous, or with cl (n, hw, c) (channels innermost); y: a contiguous
+// (n, c, hw) array of the dtype, not aliasing x. weight, bias: (c,) float32
+// or bf16 (flag 16) with flag 1, else null; scale, shift: (n, c) of the dtype
+// with row strides ss0, ss1 and unit column stride with flag 2, else null.
+// Flags: 1 affine, 2 scale and shift, 4 SiLU, 8 bf16 statistics
+// (TVC_GN_BF16_IO), 16 bf16 weights, 32 two channels a 4-byte load (the
+// plan's `pairs`: cl bf16, channels even a group and in all, x 4-byte
+// aligned; anything else is refused). The plan: `splits` (1..16) blocks a
+// slice in one cluster, each `pix` pixels of every channel of the group (the
+// last fewer, none empty), `vec` elements a load and store of y (1, or 16 bytes' worth:
+// hw and pix multiples of it, y and, without cl, x 16-byte aligned),
+// `resident` 1 to keep the part in shared memory with `ldb` elements between
+// its channel runs (at least pix, a multiple of vec). Launches on `stream`, a
+// stream of `device`, and does not synchronise. Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int tvc_groupnorm_forward(const void* x, void* y, const void* weight, const void* bias,
+                                     const void* scale, const void* shift, long long ss0,
+                                     long long ss1, int n, int c, long long hw, int groups,
+                                     float eps, int dtype, int flags, int cl, int splits, int pix,
+                                     int vec, int resident, int ldb, int device, void* stream) {
+  return forward(false, x, y, weight, bias, nullptr, nullptr, scale, shift, ss0, ss1, n, c, hw,
+                 groups, eps, dtype, flags, cl, splits, pix, vec, resident, ldb, device, stream);
+}
+
+// The SPADE entry: as tvc_groupnorm_forward without the affine weights
+// (flag 1 is refused), with gamma and beta, contiguous (n, c, hw) arrays of
+// the dtype (16-byte aligned where vec > 1), modulating the normalised value
+// as y0 * (1 + gamma) + beta before the scale/shift and SiLU.
+extern "C" int tvc_groupnorm_spade_forward(const void* x, void* y, const void* gamma,
+                                           const void* beta, const void* scale,
+                                           const void* shift, long long ss0, long long ss1,
+                                           int n, int c, long long hw, int groups, float eps,
+                                           int dtype, int flags, int cl, int splits, int pix,
+                                           int vec, int resident, int ldb, int device,
+                                           void* stream) {
+  return forward(true, x, y, nullptr, nullptr, gamma, beta, scale, shift, ss0, ss1, n, c, hw,
+                 groups, eps, dtype, flags, cl, splits, pix, vec, resident, ldb, device, stream);
 }

@@ -143,10 +143,11 @@ def _build_plan(spec: NCSNppSpec) -> List[dict]:
     return plan
 
 
-def groupnorm_shapes(spec: NCSNppSpec) -> List[Tuple[int, int, bool]]:
+def groupnorm_shapes(spec: NCSNppSpec, attention: bool = True) -> List[Tuple[int, int, bool]]:
     """(channels, resolution, modulated by the time embedding) of each
     GroupNorm of one UNet call, in call order: two a residual block (the
-    second after its resampling), one an attention block, the final
+    second after its resampling), one an attention block (left out without
+    ``attention``: the SPADE net's modulated norms are the others), the final
     ``actnorm``. What the GroupNorm kernel's tests and timings run."""
     out: List[Tuple[int, int, bool]] = []
     res = spec.image_size
@@ -156,7 +157,7 @@ def groupnorm_shapes(spec: NCSNppSpec) -> List[Tuple[int, int, bool]]:
             out += [(p["in"], res, spec.time_conditional),
                     (p["out"], after, spec.time_conditional)]
             res = after
-        elif p["kind"] in ("attn", "actnorm"):
+        elif p["kind"] == "actnorm" or (p["kind"] == "attn" and attention):
             out.append((p["ch"], res, False))
     return out
 

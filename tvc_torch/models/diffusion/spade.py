@@ -9,6 +9,14 @@ feature map. Module order and names follow the reference ``SPADE_NCSNpp``,
 so module ``i`` is ``all_modules.{i}`` and the SPADE net is
 ``Norm_0.mlp_shared.0`` / ``mlp_gamma`` / ``mlp_beta``. NCHW inside; the
 public forward takes and returns NHWC, as the JAX package's does.
+
+Each of the 71 modulated norms of a call (two a residual block and the final
+``actnorm``; the attention blocks keep their affine GroupNorm) is one call of
+``ops/groupnorm.group_norm_act`` with ``gamma`` and ``beta``: the norm, the
+modulation, the time embedding's scale and shift and SiLU in one launch of
+the GroupNorm kernel's SPADE entry on the card, the plain composition on the
+CPU. The conditioning frames enter the SPADE branch contiguous (NCHW), so
+that its convolutions write gamma and beta in the layout the kernel reads.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from torch import nn
 from tvc_torch.core.config import Config
 from tvc_torch.models.diffusion.layers import (AttnBlockpp, DDPMConv, Dense, GroupNormRef,
                                                get_timestep_embedding)
+from tvc_torch.ops.groupnorm import group_norm_act
 from tvc_torch.ops.resample import NCHW, downsample_2d, upsample_2d
 
 _SQRT2 = math.sqrt(2.0)
@@ -43,12 +52,24 @@ class MySPADE(nn.Module):
         self.mlp_gamma = DDPMConv(spade_dim, norm_nc, 3, dtype=dtype, device=device)
         self.mlp_beta = DDPMConv(spade_dim, norm_nc, 3, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, segmap: torch.Tensor) -> torch.Tensor:
-        normalized = self.param_free_norm(x)
+    def modulation(self, x: torch.Tensor, segmap: torch.Tensor):
+        """(gamma, beta) of x's shape from the conditioning frames."""
         if segmap.shape[-2:] != x.shape[-2:]:
             segmap = F.interpolate(segmap, size=tuple(x.shape[-2:]), mode="nearest")
         actv = self.mlp_shared(segmap)
-        return normalized * (1 + self.mlp_gamma(actv)) + self.mlp_beta(actv)
+        return self.mlp_gamma(actv), self.mlp_beta(actv)
+
+    def act(self, x: torch.Tensor, segmap: torch.Tensor, scale: Optional[torch.Tensor] = None,
+            shift: Optional[torch.Tensor] = None, silu: bool = False) -> torch.Tensor:
+        """The modulated norm, then ``* (1 + scale) + shift`` with (N, C)
+        ``scale`` and ``shift``, then SiLU: one ``group_norm_act``."""
+        gamma, beta = self.modulation(x, segmap)
+        norm = self.param_free_norm
+        return group_norm_act(x, norm.num_groups, norm.eps, None, None, scale, shift, silu,
+                              norm.dtype, gamma=gamma, beta=beta)
+
+    def forward(self, x: torch.Tensor, segmap: torch.Tensor) -> torch.Tensor:
+        return self.act(x, segmap)
 
 
 class GetActNormSPADE(nn.Module):
@@ -65,11 +86,10 @@ class GetActNormSPADE(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor],
                 cond: torch.Tensor) -> torch.Tensor:
-        y = self.Norm_0(x, cond)
+        scale = shift = None
         if self.has_emb:
-            scale, shift = self.Dense_0(F.silu(emb))[:, :, None, None].chunk(2, dim=1)
-            y = y * (1 + scale) + shift
-        return F.silu(y)
+            scale, shift = self.Dense_0(F.silu(emb)).chunk(2, dim=1)
+        return self.Norm_0.act(x, cond, scale, shift, silu=True)
 
 
 class ResnetBlockBigGANSPADE(nn.Module):
@@ -163,7 +183,7 @@ class SPADENCSNpp(nn.Module):
         spec, mods = self.spec, self.all_modules
         num_resolutions = len(spec.ch_mult)
         x = x.to(self.dtype).permute(0, 3, 1, 2)
-        seg = cond.permute(0, 3, 1, 2)
+        seg = cond.permute(0, 3, 1, 2).contiguous()
         m_idx = 0
         temb = None
         if spec.time_conditional:

@@ -8,9 +8,16 @@ computes, on an (N, C, *spatial) input,
 with float32 statistics and the result in the compute ``dtype``: the chain of
 ``GroupNormRef``, ``GetActNorm`` and ``GetActNorm3D``
 (``models/diffusion/layers.py``, ``ncsnpp3d.py``); ``scale`` and ``shift`` are
-(N, C), one value a sample and channel. On a CPU tensor it runs
-``group_norm_plain``, the PyTorch composition the layers ran before the kernel,
-op for op, which is also the kernel's oracle on the card. On a CUDA tensor it
+(N, C), one value a sample and channel. With ``gamma`` and ``beta`` (keywords,
+of x's shape, no affine weights) it is the SPADE net's modulated norm
+(``GetActNormSPADE``, ``models/diffusion/spade.py``):
+
+    y = GroupNorm(x) * (1 + gamma) + beta  ->  [* (1 + scale) + shift]  ->  [SiLU]
+
+launched on the card as the kernel's own entry ``groupnorm_spade_fwd``. On a
+CPU tensor it runs ``group_norm_plain``, the PyTorch composition the layers
+ran before the kernel, op for op, which is also the kernel's oracle on the
+card. On a CUDA tensor it
 launches ``tvc_torch/csrc/groupnorm.cu`` (built on first use) or raises: the
 kernel rounds where the composition rounds, so the two differ only in the
 order of the statistics' sums. The JAX package leaves this chain to XLA's
@@ -50,23 +57,28 @@ FILL_BLOCKS = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _AFFINE, _EMB, _SILU, _IO, _PARAMS_BF16, _CL_PAIRS = 1, 2, 4, 8, 16, 32
 
-# Kernel launches since the last reset_launches(); counted only where the
-# kernel is launched, never on the CPU path. A launch recorded into a CUDA
-# graph adds to ``captured``, and the graph's owner counts its launches at
-# each replay (``count_launches``).
+# Kernel launches since the last reset_launches(), of the plain entry
+# (``launches``) and of the SPADE entry (``spade_launches``); counted only
+# where the kernel is launched, never on the CPU path. A launch recorded into
+# a CUDA graph adds to ``captured`` or ``spade_captured``, and the graph's
+# owner counts its launches at each replay (``count_launches``).
 launches = 0
 captured = 0
+spade_launches = 0
+spade_captured = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, spade_launches
+    launches = spade_launches = 0
 
 
-def count_launches(n: int) -> None:
-    """Count ``n`` launches made by replaying a CUDA graph."""
-    global launches
+def count_launches(n: int, spade: int = 0) -> None:
+    """Count ``n`` launches of the plain entry and ``spade`` of the SPADE
+    entry made by replaying a CUDA graph."""
+    global launches, spade_launches
     launches += n
+    spade_launches += spade
 
 
 def gn_bf16_io() -> bool:
@@ -141,11 +153,13 @@ def group_norm_plain(x: torch.Tensor, num_groups: int, eps: float,
                      weight: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
                      scale: Optional[torch.Tensor] = None, shift: Optional[torch.Tensor] = None,
                      silu: bool = False, dtype: torch.dtype = torch.float32,
-                     io: Optional[bool] = None) -> torch.Tensor:
+                     io: Optional[bool] = None, gamma: Optional[torch.Tensor] = None,
+                     beta: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The chain as plain PyTorch ops: ``GroupNormRef`` (float32 statistics,
     the affine weights rounded to ``dtype`` first; with ``io``, default
     ``gn_bf16_io()``, a non-float32 dtype's input and output stay in it),
-    then ``y * (1 + scale) + shift`` and ``silu`` in ``dtype``."""
+    then SPADE's ``y * (1 + gamma) + beta``, ``y * (1 + scale) + shift`` and
+    ``silu`` in ``dtype``."""
     dt = dtype
     io = gn_bf16_io() if io is None else io
     w = weight.to(dt) if weight is not None else None
@@ -157,12 +171,14 @@ def group_norm_plain(x: torch.Tensor, num_groups: int, eps: float,
         w = None if w is None else w.float()
         b = None if b is None else b.float()
         y = F.group_norm(x.float(), num_groups, w, b, eps).to(dt)
+    if gamma is not None:
+        y = y * (1 + gamma) + beta
     if scale is not None:
         y = y * (1 + _rows(scale, x)) + _rows(shift, x)
     return F.silu(y) if silu else y
 
 
-def _check(x, num_groups, weight, bias, scale, shift, dtype) -> None:
+def _check(x, num_groups, weight, bias, scale, shift, dtype, gamma=None, beta=None) -> None:
     if x.dim() < 2:
         raise ValueError(f"group_norm_act expects an (N, C, *spatial) tensor, got {tuple(x.shape)}")
     if dtype not in DTYPES or x.dtype != dtype:
@@ -171,8 +187,16 @@ def _check(x, num_groups, weight, bias, scale, shift, dtype) -> None:
     n, c = x.shape[:2]
     if c % num_groups:
         raise ValueError(f"{c} channels do not split into {num_groups} groups")
-    if (weight is None) != (bias is None) or (scale is None) != (shift is None):
-        raise ValueError("weight and bias, and scale and shift, come in pairs")
+    if ((weight is None) != (bias is None) or (scale is None) != (shift is None)
+            or (gamma is None) != (beta is None)):
+        raise ValueError("weight and bias, scale and shift, and gamma and beta come in pairs")
+    if gamma is not None:
+        if weight is not None:
+            raise ValueError("the SPADE norm (gamma and beta) takes no affine weights")
+        for name, t in (("gamma", gamma), ("beta", beta)):
+            if t.shape != x.shape or t.device != x.device or t.dtype != dtype:
+                raise ValueError(f"{name} must be {tuple(x.shape)} {dtype} on {x.device}, got "
+                                 f"{tuple(t.shape)} {t.dtype} on {t.device}")
     for name, t, shape in (("weight", weight, (c,)), ("bias", bias, (c,)),
                            ("scale", scale, (n, c)), ("shift", shift, (n, c))):
         if t is None:
@@ -188,9 +212,12 @@ def _check(x, num_groups, weight, bias, scale, shift, dtype) -> None:
         raise TypeError("weight and bias must share a dtype")
 
 
-def _kernel():
-    """The C entry point of ``csrc/groupnorm.cu``, built on first use."""
-    fn = _build.load("groupnorm").tvc_groupnorm_forward
+def _kernel(spade: bool = False):
+    """A C entry point of ``csrc/groupnorm.cu`` (the plain one, or the SPADE
+    one, which takes gamma and beta where the plain one takes the affine
+    weights), built on first use."""
+    lib = _build.load("groupnorm")
+    fn = lib.tvc_groupnorm_spade_forward if spade else lib.tvc_groupnorm_forward
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
                        + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
@@ -209,12 +236,14 @@ def channels_last(x: torch.Tensor) -> bool:
 
 
 def launch(x: torch.Tensor, num_groups: int, eps: float, weight=None, bias=None, scale=None,
-           shift=None, silu: bool = False, io: bool = False) -> torch.Tensor:
+           shift=None, silu: bool = False, io: bool = False, gamma=None,
+           beta=None) -> torch.Tensor:
     """Launch the kernel on a CUDA tensor that ``_check`` accepts (its dtype
     is the compute dtype), contiguous or channels-last, into a new contiguous
-    tensor, with ``groupnorm_plan``'s plan. Counts one launch, or one capture
-    while the stream records a CUDA graph."""
-    global launches, captured
+    tensor, with ``groupnorm_plan``'s plan; with ``gamma`` and ``beta`` (made
+    contiguous and aligned here) its SPADE entry. Counts one launch, or one
+    capture while the stream records a CUDA graph, of the entry it runs."""
+    global launches, captured, spade_launches, spade_captured
     cl = channels_last(x)
     if not (cl or x.is_contiguous()):
         raise ValueError("group_norm_act's kernel expects a contiguous or channels-last "
@@ -224,6 +253,10 @@ def launch(x: torch.Tensor, num_groups: int, eps: float, weight=None, bias=None,
     plan = groupnorm_plan(n, c, hw, num_groups, x.dtype, cl)
     if (plan.vec > 1 and not cl and x.data_ptr() % 16) or (plan.pairs and x.data_ptr() % 4):
         x = x.clone()  # a fresh allocation, aligned, in x's layout
+    spade = gamma is not None
+    if spade:  # read at y's offsets, 16 bytes a load
+        gamma, beta = (t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(
+            memory_format=torch.contiguous_format) for t in (gamma, beta))
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     io = io and x.dtype != torch.float32
     if io:  # ATen's bf16 group norm takes eps in the input's dtype
@@ -233,14 +266,22 @@ def launch(x: torch.Tensor, num_groups: int, eps: float, weight=None, bias=None,
              | (_PARAMS_BF16 if weight is not None and weight.dtype == torch.bfloat16 else 0)
              | (_CL_PAIRS if plan.pairs else 0))
     ss = (scale.stride(0), shift.stride(0)) if scale is not None else (0, 0)
-    err = _kernel()(x.data_ptr(), y.data_ptr(), _ptr(weight), _ptr(bias), _ptr(scale),
-                    _ptr(shift), *ss, n, c, hw, num_groups, eps, DTYPES[x.dtype], flags,
-                    int(cl), plan.splits, plan.pix, plan.vec, int(plan.resident),
-                    plan.ldb, x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    err = _kernel(spade)(x.data_ptr(), y.data_ptr(),
+                         *((_ptr(gamma), _ptr(beta)) if spade else (_ptr(weight), _ptr(bias))),
+                         _ptr(scale), _ptr(shift), *ss, n, c, hw, num_groups, eps,
+                         DTYPES[x.dtype], flags, int(cl), plan.splits, plan.pix, plan.vec,
+                         int(plan.resident), plan.ldb, x.device.index,
+                         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"groupnorm kernel launch failed with CUDA error {err} at shape "
-                           f"{tuple(x.shape)} {x.dtype} (channels-last {cl}) with {plan}")
-    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"groupnorm{' spade' if spade else ''} kernel launch failed with CUDA "
+                           f"error {err} at shape {tuple(x.shape)} {x.dtype} (channels-last {cl}) "
+                           f"with {plan}")
+    capturing = torch.cuda.is_current_stream_capturing()
+    if spade and capturing:
+        spade_captured += 1
+    elif spade:
+        spade_launches += 1
+    elif capturing:
         captured += 1
     else:
         launches += 1
@@ -252,21 +293,21 @@ class KernelGroupNorm(torch.autograd.Function):
     backward recomputes ``group_norm_plain`` and differentiates it."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, scale, shift, num_groups, eps, silu, io):
-        ctx.save_for_backward(x, weight, bias, scale, shift)
+    def forward(ctx, x, weight, bias, scale, shift, gamma, beta, num_groups, eps, silu, io):
+        ctx.save_for_backward(x, weight, bias, scale, shift, gamma, beta)
         ctx.args = (num_groups, eps, silu, io)
-        return launch(x, num_groups, eps, weight, bias, scale, shift, silu, io)
+        return launch(x, num_groups, eps, weight, bias, scale, shift, silu, io, gamma, beta)
 
     @staticmethod
     def backward(ctx, dy):
         num_groups, eps, silu, io = ctx.args
-        needs = ctx.needs_input_grad[:5]
+        needs = ctx.needs_input_grad[:7]
         with torch.enable_grad():
             leaves = [None if t is None else t.detach().requires_grad_(need)
                       for t, need in zip(ctx.saved_tensors, needs)]
-            x, weight, bias, scale, shift = leaves
+            x, weight, bias, scale, shift, gamma, beta = leaves
             y = group_norm_plain(x, num_groups, eps, weight, bias, scale, shift, silu,
-                                 x.dtype, io)
+                                 x.dtype, io, gamma, beta)
             wanted = [t for t, need in zip(leaves, needs) if t is not None and need]
             grads = iter(torch.autograd.grad(y, wanted, dy) if wanted else ())
         return tuple(next(grads) if t is not None and need else None
@@ -276,7 +317,9 @@ class KernelGroupNorm(torch.autograd.Function):
 def group_norm_act(x: torch.Tensor, num_groups: int, eps: float,
                    weight: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
                    scale: Optional[torch.Tensor] = None, shift: Optional[torch.Tensor] = None,
-                   silu: bool = False, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                   silu: bool = False, dtype: torch.dtype = torch.float32, *,
+                   gamma: Optional[torch.Tensor] = None,
+                   beta: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The chain of the module's docstring: the CUDA kernel on the card
     (through ``KernelGroupNorm``, which saves nothing where autograd does not
     record), ``group_norm_plain`` for CPU tensors. ``TVC_GN_BF16_IO`` is read
@@ -287,10 +330,11 @@ def group_norm_act(x: torch.Tensor, num_groups: int, eps: float,
     card; the result is contiguous."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"group_norm_act runs on cuda or cpu tensors, got {x.device}")
-    _check(x, num_groups, weight, bias, scale, shift, dtype)
+    _check(x, num_groups, weight, bias, scale, shift, dtype, gamma, beta)
     if x.device.type == "cpu":
-        return group_norm_plain(x, num_groups, eps, weight, bias, scale, shift, silu, dtype)
+        return group_norm_plain(x, num_groups, eps, weight, bias, scale, shift, silu, dtype,
+                                gamma=gamma, beta=beta)
     if not (x.is_contiguous() or channels_last(x)):
         x = x.contiguous()
-    return KernelGroupNorm.apply(x, weight, bias, scale, shift, num_groups, eps, silu,
-                                 gn_bf16_io())
+    return KernelGroupNorm.apply(x, weight, bias, scale, shift, gamma, beta, num_groups, eps,
+                                 silu, gn_bf16_io())

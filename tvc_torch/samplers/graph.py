@@ -21,7 +21,8 @@ clones the output (a sampler may keep earlier outputs, as F-PNDM keeps four).
 A graph replays the kernels that the eager call launched, on the same
 inputs, so its output is the eager output byte for byte (the card-only
 tests and ``chip_smoke.py`` hold it to that). The attention and GroupNorm
-kernels' launch counters count a replay's launches at each replay.
+kernels' launch counters (the GroupNorm kernel's SPADE entry's too) count a
+replay's launches at each replay.
 
 A failed capture or replay raises; nothing falls back to the eager call.
 The caller decides the device: a frame predictor on the CPU passes
@@ -52,6 +53,7 @@ class _Entry:
     attention_launches: int   # attention kernels the graph launches a replay
     kernel_launches: Dict[str, int]  # of them, by kernel name
     groupnorm_launches: int   # GroupNorm kernels the graph launches a replay
+    spade_launches: int       # of the GroupNorm kernel's SPADE entry, a replay
     capture_s: float          # host seconds of the capture
     pool_bytes: int           # device memory the capture reserved (its pool)
     replays: int = 0
@@ -105,14 +107,14 @@ class GraphedEps:
             entry.graph.replay()  # raises on a failed replay
             profiler.count("graph.replays")
             attention.count_launches(entry.attention_launches, entry.kernel_launches)
-            groupnorm.count_launches(entry.groupnorm_launches)
+            groupnorm.count_launches(entry.groupnorm_launches, entry.spade_launches)
             entry.replays += 1
             return entry.output.clone()
 
     def _capture(self, key, inputs) -> _Entry:
         static = {k: torch.empty_like(v) for k, v in inputs.items() if v is not None}
         c0 = dict(attention.kernel_captured)
-        g0 = groupnorm.captured
+        g0, s0 = groupnorm.captured, groupnorm.spade_captured
         with profiler.timed("predictor.capture") as timer:
             profiler.count("graph.captures")
             try:
@@ -122,15 +124,16 @@ class GraphedEps:
                 raise RuntimeError(f"CUDA graph capture of the UNet call {key} failed") from e
         by_kernel = {k: n - c0[k] for k, n in attention.kernel_captured.items()}
         entry = _Entry(graph, static, out, launches, by_kernel, groupnorm.captured - g0,
-                       timer.seconds, pool)
+                       groupnorm.spade_captured - s0, timer.seconds, pool)
         self.entries[key] = entry
         return entry
 
     def stats(self) -> Dict[str, dict]:
-        """Per signature: capture seconds, pool bytes, attention and GroupNorm
-        launches a replay and replays so far."""
+        """Per signature: capture seconds, pool bytes, attention, GroupNorm
+        and SPADE norm launches a replay and replays so far."""
         return {str(k): {"capture_s": e.capture_s, "pool_bytes": e.pool_bytes,
                          "attention_launches": e.attention_launches,
-                         "groupnorm_launches": e.groupnorm_launches, "replays": e.replays}
+                         "groupnorm_launches": e.groupnorm_launches,
+                         "spade_launches": e.spade_launches, "replays": e.replays}
                 for k, e in self.entries.items()}
 
