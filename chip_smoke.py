@@ -31,7 +31,11 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    UNet at B = 1, in float32 and bfloat16, against the plain composition at
    the card tests' tolerances (contiguous and channels-last, two launches
    bit-identical), with its time, the plain composition's, ``F.group_norm``
-   + ``F.silu``'s and the bound (x read once, y written once);
+   + ``F.silu``'s and the bound (x read once, y written once); then the FIR
+   resampling kernel ``fir.cu`` at every resampling shape of the flagship
+   UNet (float32 B = 1 on NCHW planes, bf16 B = 1 and 8 channels-last)
+   against the ops it replaces, byte for byte, with its time, theirs and the
+   bound;
 4. the full-width UNet (default ``Config()``, 262.1M parameters, seeded random
    weights): one forward through the kernel against one through the plain
    attention on the card, its time as a replayed CUDA graph (``unet_ms``;
@@ -193,8 +197,11 @@ Every path above (7, 8, 10-19) must launch the attention kernel 1010 times per
 DDPM or DDIM update or lockstep sweep (F-PNDM 1090, the warm start 960, the
 3-D nets' 11-call updates 110), 10 per train step; the ``kernels`` line sums
 their launches. Phases 4, 7, 8, 11 and 17's bf16 UNet must launch the
-GroupNorm kernel 81 times a UNet call (8181 an update or sweep); the
-``kernels`` line's ``groupnorm`` entry sums those.
+GroupNorm kernel 81 times a UNet call (8181 an update or sweep), every launch
+writing channels-last in bf16 and none in float32
+(``groupnorm.channels_last_writes``), and the FIR resampling kernel 16 times a
+call in either dtype (``resample.launches``); the ``kernels`` line's
+``groupnorm`` and ``fir`` entries sum those.
 
 The last lines are the ``kernels`` JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -205,7 +212,11 @@ non-zero and prints no result; nothing runs on the CPU.
     python3 chip_smoke.py --kernels-only [--sweep]   # phases 1-3, no result
     python3 chip_smoke.py --phase19-only [--zoo-train-largest]   # phases 1-3 and 19, no result
     python3 chip_smoke.py --groupnorm-only   # phases 1-2 and the GroupNorm kernel at B = 1
-                                             # and 8, in the full-width UNet too; no result
+                                             # and 8 (a channels-last input timed writing
+                                             # channels-last and contiguous), in the
+                                             # full-width UNet too, each call timed in
+                                             # its rule's layout and the other one, then
+                                             # the FIR kernel's rows; no result
     python3 chip_smoke.py --spade-only   # phases 1-2, the GroupNorm kernel's SPADE entry
                                          # at the SPADE net's 71 norms (float32 B = 1, bf16
                                          # B = 1 and 8) and in its full-width UNet, then
@@ -249,6 +260,10 @@ GN_PER_CALL = 81
 # its attention blocks' norms (the plain entry)
 SPADE_PER_CALL = 71
 SPADE_GN_PER_CALL = 10
+# FIR resampling kernel launches (``csrc/fir.cu``) of one flagship UNet call,
+# in either dtype: two a BigGAN up or down block (its input and its residual),
+# 4 down and 4 up blocks
+FIR_PER_CALL = 16
 # the 3-D nets fold their frames into the spatial attention's batch: b = 7
 # (n_frames) on the way down and in the middle, 5 (num_frames) on the way up;
 # launches per UNet call at each level
@@ -375,18 +390,48 @@ def read_launches(attn) -> int:
     return attn.launches
 
 
-# the GroupNorm kernel's launches on the paths checked by check_groupnorm_launches
+# the GroupNorm and FIR kernels' launches on the paths checked by check_groupnorm_launches
 GROUPNORM_LAUNCHES = 0
+FIR_LAUNCHES = 0
 
 
-def check_groupnorm_launches(n: int, calls: int, what: str) -> int:
+def reset_unet_counts() -> None:
+    """Set the GroupNorm and FIR kernels' counts to 0: a checked path starts."""
+    from tvc_torch.ops import groupnorm, resample
+
+    groupnorm.reset_launches()
+    resample.reset_launches()
+
+
+def unet_counts():
+    """(GroupNorm launches, of them writing channels-last, FIR launches) since
+    ``reset_unet_counts``, graph replays included."""
+    from tvc_torch.ops import groupnorm, resample
+
+    return groupnorm.launches, groupnorm.channels_last_writes, resample.launches
+
+
+def check_groupnorm_launches(n: int, calls: int, what: str, cl_writes: int, fir: int,
+                             bf16: bool = False) -> int:
     """Fail unless ``n``, the GroupNorm launches of the path just driven (the
-    count was set to 0 right before it), is GN_PER_CALL for each of its
-    ``calls`` UNet calls; adds it to GROUPNORM_LAUNCHES."""
-    global GROUPNORM_LAUNCHES
+    counts were set to 0 right before it, ``reset_unet_counts``), is
+    GN_PER_CALL for each of its ``calls`` UNet calls, unless ``cl_writes`` of
+    them wrote channels-last (``groupnorm.channels_last_writes``): all of them
+    in bf16, where the UNet's activations are channels-last, none in float32;
+    and unless ``fir``, the FIR kernel's launches (``resample.launches``), is
+    FIR_PER_CALL a call in either dtype (the kernel is the card's only route
+    of the polyphase resampling). Adds ``n`` to GROUPNORM_LAUNCHES and
+    ``fir`` to FIR_LAUNCHES."""
+    global GROUPNORM_LAUNCHES, FIR_LAUNCHES
     if n != GN_PER_CALL * calls:
         fail(f"{what} launched the GroupNorm kernel {n} times, not {GN_PER_CALL} x {calls}")
+    if cl_writes != (n if bf16 else 0):
+        fail(f"{what}: {cl_writes} of its {n} GroupNorm launches wrote channels-last, not "
+             f"{n if bf16 else 0} ({'bf16' if bf16 else 'float32'})")
+    if fir != FIR_PER_CALL * calls:
+        fail(f"{what} launched the FIR kernel {fir} times, not {FIR_PER_CALL} x {calls}")
     GROUPNORM_LAUNCHES += n
+    FIR_LAUNCHES += fir
     return n
 
 
@@ -582,11 +627,12 @@ def phase_unet(torch, attn, layers, predictor):
     t = torch.tensor([500], device="cuda")
     with torch.no_grad():
         before = attn.launches
-        groupnorm.reset_launches()
+        reset_unet_counts()
         out = model(x, t, cond)
         if attn.launches - before != 10:
             fail(f"the UNet forward launched {attn.launches - before} attention kernels, not 10")
-        check_groupnorm_launches(groupnorm.launches, 1, "the UNet forward")
+        gn, gn_cl, fir = unet_counts()
+        check_groupnorm_launches(gn, 1, "the UNet forward", gn_cl, fir)
         with mock.patch.object(layers, "attention", attn.attention_plain):
             ref = model(x, t, cond)
         torch.cuda.synchronize()
@@ -767,11 +813,11 @@ def phase_gop(torch, attn, sender, coder, video, config_mods):
     torch.cuda.reset_peak_memory_stats()
     try:
         attn.reset_launches()  # the main path starts here
-        groupnorm.reset_launches()
+        reset_unet_counts()
         gop, wall = timed(torch, lambda: run_gop(sender, coder, video[0], cfg.seed, GOP_FRAMES,
                                                   cfg.codec.patch, keep_streams=True))
         launches = read_launches(attn)  # read right after the main path
-        gn_launches = groupnorm.launches
+        gn_launches, gn_cl, fir = unet_counts()
     finally:
         sender.lpips = lpips
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -783,12 +829,13 @@ def phase_gop(torch, attn, sender, coder, video, config_mods):
            "threshold": sender.threshold,
            "threshold_margin": float(np.min(np.abs(np.concatenate(scores) - sender.threshold))),
            "attention_launches": launches, "groupnorm_launches": gn_launches,
-           "peak_mem_gb": peak}
+           "fir_launches": fir, "peak_mem_gb": peak}
     log("gop_sender " + json.dumps(row))
     if launches != per_update * gop.n_updates:
         fail(f"the GOP launched the attention kernel {launches} times, not "
              f"{per_update} x {gop.n_updates}")
-    check_groupnorm_launches(gn_launches, sender.predictor.n_steps * gop.n_updates, "the GOP")
+    check_groupnorm_launches(gn_launches, sender.predictor.n_steps * gop.n_updates, "the GOP",
+                             gn_cl, fir)
     if (len(d) != GOP_FRAMES or len(gop.containers) != 1 + gop.accepts.count(0)
             or d.count(0) != sum(gop.accepts) or len(gop.accepts) != gop.n_updates):
         fail("d, accepts and the containers disagree")
@@ -879,13 +926,13 @@ def phase_device_gop(torch, attn, sender, coder, video, ref):
         torch.cuda.set_sync_debug_mode("warn")
         try:
             attn.reset_launches()  # the path starts here
-            groupnorm.reset_launches()
+            reset_unet_counts()
             t0 = time.perf_counter()
             gop = runner.run(coder, video[0], cfg.seed, sender.threshold, cfg.codec.patch,
                              timings=timings, keep_streams=True)
             wall = time.perf_counter() - t0
             launches = read_launches(attn)  # read right after the path
-            gn_launches = groupnorm.launches
+            gn_launches, gn_cl, fir = unet_counts()
         finally:
             torch.cuda.set_sync_debug_mode(0)
             del coder.compress
@@ -912,7 +959,7 @@ def phase_device_gop(torch, attn, sender, coder, video, ref):
         fail(f"DeviceGOPRunner launched {launches} attention kernels, not "
              f"{per_update} x {gop.n_updates}")
     check_groupnorm_launches(gn_launches, sender.predictor.n_steps * gop.n_updates,
-                             "DeviceGOPRunner")
+                             "DeviceGOPRunner", gn_cl, fir)
     if not row["uint8_division_exact"]:
         fail("the card's uint8 -> [0, 1] conversion differs from numpy's")
     return row
@@ -1040,11 +1087,11 @@ def phase_batched(torch, attn, predictor, coder, lpips):
     try:
         torch.cuda.reset_peak_memory_stats()
         attn.reset_launches()  # the path starts here
-        groupnorm.reset_launches()
+        reset_unet_counts()
         (results, stats), wall = timed(torch, lambda: runner.run_walks(walks, cfg.seed,
                                                                        cfg.codec.patch))
         launches = read_launches(attn)
-        gn_launches = groupnorm.launches
+        gn_launches, gn_cl, fir = unet_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9  # cuDNN's timing workspaces too
         torch.cuda.reset_peak_memory_stats()
         again, stats2 = runner.run_walks(walks, cfg.seed, cfg.codec.patch)
@@ -1074,7 +1121,7 @@ def phase_batched(torch, attn, predictor, coder, lpips):
     if launches != per_update * stats["sweeps"]:
         fail(f"BatchedGOPRunner launched {launches}, not {per_update} x {stats['sweeps']}")
     check_groupnorm_launches(gn_launches, predictor.n_steps * stats["sweeps"],
-                             "BatchedGOPRunner")
+                             "BatchedGOPRunner", gn_cl, fir)
     if any(w[0].x_ge.shape != (1, BATCH_FRAMES, 128, 128, 3) or not np.isfinite(w[0].x_ge).all()
            for w in results):
         fail(f"BatchedGOPRunner's frames are not {BATCH_FRAMES} finite frames")
@@ -2103,7 +2150,7 @@ def phase_train_cli(torch, tmp, video):
 
 
 TRAIN_THEN_PREDICT = "--train-then-predict"  # phase 16e's fresh process
-GROUPNORM_ONLY = "--groupnorm-only"  # phase 1 and the GroupNorm kernel alone; prints no result
+GROUPNORM_ONLY = "--groupnorm-only"  # phase 1, the GroupNorm and FIR kernels; prints no result
 
 
 def groupnorm_error(torch, got, want):
@@ -2129,7 +2176,10 @@ def groupnorm_rows(torch, groupnorm, shapes, dtype, b):
     |kernel - plain| (and the share of elements that differ), ms as a replayed
     graph against the bound (x read once, y written once at HBM_BPS), the
     plain composition and the library yardstick (F.group_norm then F.silu,
-    one call each, in the dtype)."""
+    one call each, in the dtype). A channels-last x is timed writing its own
+    layout (``ms_channels_last``, as the bf16 UNet runs it) beside writing a
+    contiguous y (``ms_channels_last_to_nchw``), and the two results must be
+    equal bit for bit."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(b)
@@ -2151,9 +2201,14 @@ def groupnorm_rows(torch, groupnorm, shapes, dtype, b):
             ref = groupnorm.group_norm_plain(*args)
             again = groupnorm.group_norm_act(*args)
             out_cl = groupnorm.group_norm_act(*args_cl)
+            out_cl_nchw = groupnorm.launch(*args_cl[:8], out_channels_last=False)
             torch.cuda.synchronize()
             err, share, ok = groupnorm_error(torch, out, ref)
             err_cl, share_cl, ok_cl = groupnorm_error(torch, out_cl, ref)
+            if not (out_cl.is_contiguous(memory_format=torch.channels_last)
+                    and torch.equal(out_cl, out_cl_nchw)):
+                fail(f"groupnorm {c}x{r} B={b} {dtype}: the channels-last output differs from "
+                     f"the contiguous one of the same input")
             if not (ok and ok_cl):
                 fail(f"groupnorm {c}x{r} B={b} {dtype}: kernel against plain max |diff| {err} "
                      f"(channels-last {err_cl}), differing share {share} ({share_cl}), "
@@ -2163,6 +2218,8 @@ def groupnorm_rows(torch, groupnorm, shapes, dtype, b):
             iters = 20 if b * c * r * r >= 1 << 22 else 100
             ms = graph_ms(torch, lambda: groupnorm.group_norm_act(*args), iters)
             ms_cl = graph_ms(torch, lambda: groupnorm.group_norm_act(*args_cl), iters)
+            ms_cl_nchw = graph_ms(torch, lambda: groupnorm.launch(
+                *args_cl[:8], out_channels_last=False), iters)
             plain_ms = graph_ms(torch, lambda: groupnorm.group_norm_plain(*args), iters)
             lib_ms = graph_ms(torch, lambda: F.silu(F.group_norm(x, 32, None if w is None else
                                                                  w.to(dtype), None if bias is None
@@ -2177,6 +2234,7 @@ def groupnorm_rows(torch, groupnorm, shapes, dtype, b):
                      "max_abs_err": err, "max_abs_plain": ref.float().abs().max().item(),
                      "differ_share": share, "ms": ms, "max_abs_err_cl": err_cl,
                      "differ_share_cl": share_cl, "ms_channels_last": ms_cl,
+                     "ms_channels_last_to_nchw": ms_cl_nchw,
                      "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
                      "share_of_bound": bound / ms})
         log("groupnorm_shape " + json.dumps(rows[-1]))
@@ -2187,10 +2245,12 @@ def groupnorm_per_call(rows):
     """``groupnorm_rows`` summed over one UNet call's GroupNorms: times and
     bounds, the largest error and the launches."""
     tot = {k: sum(r[k] * r["per_unet_call"] for r in rows)
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+           for k in ("ms", "ms_channels_last", "ms_channels_last_to_nchw", "plain_ms",
+                     "library_ms", "bound_ms")}
     tot["bound_by"] = "bytes"
     tot["max_abs_err"] = max(max(r["max_abs_err"], r["max_abs_err_cl"]) for r in rows)
     tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
+    tot["share_of_bound_channels_last"] = tot["bound_ms"] / tot["ms_channels_last"]
     tot["launches_per_unet_call"] = sum(r["per_unet_call"] for r in rows)
     return tot
 
@@ -2207,7 +2267,7 @@ def unet_groupnorm_calls(torch, groupnorm, layers):
     the plain composition: float32 at B = 1 and bf16 at B = 8, within
     GN_UNET_REL_TOL and with GN_PER_CALL launches a call, ms per call as a
     replayed graph, where the GroupNorm inputs lie (contiguous or
-    channels-last), and each call's longest kernels."""
+    channels-last), and each call's longest kernels; then ``call_layouts``."""
     from unittest import mock
 
     from tvc_torch.core.config import Config
@@ -2270,6 +2330,45 @@ def unet_groupnorm_calls(torch, groupnorm, layers):
             with mock.patch.object(layers, "group_norm_act", groupnorm.group_norm_plain):
                 for line in profile_unet(torch, lambda: net(xs, t, cs)):
                     log(f"groupnorm unet {tag} plain {line}")
+    out["layouts"] = call_layouts(torch, model, cfg, g)
+    return out
+
+
+def call_layouts(torch, model, cfg, g):
+    """Each UNet call timed in the layout its rule takes against the same call
+    forced into the other one end to end, as replayed graphs (with
+    ``batched_conv_algorithms``, as ``generate`` runs a batch), with each
+    call's longest kernels: float32 at B = 1 (rule: contiguous NCHW, as
+    cuDNN's float32 kernels with TF32 off are NCHW ones; other:
+    channels-last), bf16 at B = 1 and 8 (rule: channels-last; other:
+    contiguous)."""
+    from unittest import mock
+
+    from tvc_torch.core.runtime import batched_conv_algorithms
+    from tvc_torch.models.diffusion import ncsnpp
+
+    size, ch = cfg.data.image_size, cfg.data.channels
+    net16 = model.with_dtype(torch.bfloat16, {k: v.to(torch.bfloat16) if v.dtype == torch.float32
+                                              else v for k, v in model.state_dict().items()})
+    out = {}
+    for net, b, other in ((model, 1, torch.channels_last), (net16, 1, torch.contiguous_format),
+                          (net16, 8, torch.contiguous_format)):
+        x = torch.randn((b, size, size, ch * cfg.data.num_frames), generator=g,
+                        device="cuda").to(net.dtype)
+        cond = torch.randn((b, size, size, ch * cfg.data.num_frames_cond), generator=g,
+                           device="cuda").to(net.dtype)
+        t = torch.full((b,), 500, device="cuda")
+        row = {"other": "channels_last" if other == torch.channels_last else "contiguous"}
+        with torch.no_grad(), batched_conv_algorithms(b, "cuda"):
+            row["rule_ms"] = graph_ms(torch, lambda: net(x, t, cond), 3)
+            with mock.patch.object(ncsnpp, "activation_layout", lambda *_: other):
+                row["other_ms"] = graph_ms(torch, lambda: net(x, t, cond), 3)
+                row["other_top"] = profile_unet(torch, lambda: net(x, t, cond))[:6]
+            row["rule_top"] = profile_unet(torch, lambda: net(x, t, cond))[:6]
+        tag = f"{str(net.dtype).replace('torch.', '')}_B{b}"
+        out[tag] = row
+        log(f"unet layouts {tag}: rule {row['rule_ms']:.3f} ms, {row['other']} "
+            f"{row['other_ms']:.3f} ms; " + json.dumps(row))
     return out
 
 
@@ -2298,6 +2397,81 @@ def phase_groupnorm_kernel(torch):
         calls[dt] = groupnorm_per_call(groupnorm_rows(torch, groupnorm, shapes, dtype, 1))
         log(f"groupnorm per UNet call, B=1 {dt}: " + json.dumps(calls[dt]))
     log(f"groupnorm kernel rows: {time.perf_counter() - t0:.1f} s")
+    return calls
+
+
+def flagship_fir_shapes():
+    """(channels, resolution, up) of each FIR resampling of one flagship UNet
+    call, FIR_PER_CALL of them: two a BigGAN up or down block, at its input's
+    width and resolution."""
+    from tvc_torch.core.config import Config
+    from tvc_torch.models.diffusion.ncsnpp import NCSNppSpec, _build_plan
+
+    spec = NCSNppSpec.from_config(Config())
+    shapes, res = [], spec.image_size
+    for p in _build_plan(spec):
+        if p["kind"] == "res" and (p.get("up") or p.get("down")):
+            shapes += [(p["in"], res, bool(p.get("up")))] * 2
+            res = res * 2 if p.get("up") else res // 2
+    if len(shapes) != FIR_PER_CALL:
+        fail(f"the flagship UNet has {len(shapes)} FIR resamplings, not {FIR_PER_CALL}")
+    return shapes
+
+
+def phase_fir_kernel(torch):
+    """Phase 3, continued: the FIR resampling kernel (``csrc/fir.cu``) at
+    every resampling shape of the flagship UNet, float32 at B = 1 and bf16 at
+    B = 1 and 8, each in the layout the UNet gives it (bf16: channels-last,
+    the NHWC tensor it is; float32: contiguous NCHW, its planes), against the
+    ops it replaces (``resample._polyphase``: the two axis passes): the same
+    bytes, one launch each; ms as a replayed graph beside the ops' and the
+    bound (x read once, y written once at HBM_BPS), summed over a UNet call."""
+    from tvc_torch.ops import resample
+
+    t0 = time.perf_counter()
+    shapes = flagship_fir_shapes()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    calls = {}
+    for dtype, b in ((torch.float32, 1), (torch.bfloat16, 1), (torch.bfloat16, 8)):
+        axes = resample.NCHW
+        fmt = torch.contiguous_format if dtype == torch.float32 else torch.channels_last
+        tag = f"{str(dtype).replace('torch.', '')}_B{b}"
+        rows = []
+        for c, r, up in sorted(set(shapes)):
+            x = (torch.randn((b, c, r, r), generator=g, device="cuda") * 3).to(dtype)
+            x = x.contiguous(memory_format=fmt)
+            k4 = resample._separable_4tap((1, 3, 3, 1))
+            taps = resample._taps(k4 * (2.0 if up else 1.0), dtype)
+            with torch.no_grad():
+                before = resample.launches
+                got = resample._fir_card(x, taps, up, axes, False)
+                want = resample._polyphase(x, taps, up, axes, False)
+                torch.cuda.synchronize()
+                if resample.launches != before + 1 or not torch.equal(got, want):
+                    fail(f"fir {c}x{r} {'up' if up else 'down'} {tag}: the kernel is not the "
+                         f"ops byte for byte, or not one launch")
+                if got.stride() != want.contiguous(memory_format=fmt).stride():
+                    fail(f"fir {c}x{r} {tag}: the result is not laid out as its input")
+                iters = 20 if b * c * r * r >= 1 << 22 else 100
+                ms = graph_ms(torch, lambda: resample._fir_card(x, taps, up, axes, False), iters)
+                plain_ms = graph_ms(torch, lambda: resample._polyphase(x, taps, up, axes, False),
+                                    iters)
+            bound = (x.numel() + got.numel()) * x.element_size() / HBM_BPS * 1e3
+            rows.append({"C": c, "res": r, "up": up, "per_unet_call": shapes.count((c, r, up)),
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                         "share_of_bound": bound / ms})
+            log(f"fir_shape {tag} " + json.dumps(rows[-1]))
+        tot = {k: sum(r[k] * r["per_unet_call"] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms")}
+        tot.update({"bound_by": "bytes", "max_abs_err": 0.0,
+                    "share_of_bound": tot["bound_ms"] / tot["ms"],
+                    "launches_per_unet_call": sum(r["per_unet_call"] for r in rows),
+                    "layout": "channels_last" if fmt == torch.channels_last else "nchw"})
+        calls[tag] = tot
+        log(f"fir per UNet call {tag}: " + json.dumps(tot))
+        if not tot["ms"] < tot["plain_ms"]:
+            fail(f"the FIR kernel takes {tot['ms']} ms a call {tag}, the ops {tot['plain_ms']}")
+    log(f"fir kernel rows: {time.perf_counter() - t0:.1f} s")
     return calls
 
 
@@ -2345,7 +2519,10 @@ def spade_rows(torch, groupnorm, shapes, dtype, b):
     bit-identical reruns: ms as a replayed graph against the bound (x, gamma
     and beta read once, y written once at HBM_BPS) and the plain composition
     it replaces (``group_norm_plain``: ATen's norm, then the modulation, the
-    scale/shift and SiLU, one launch an op)."""
+    scale/shift and SiLU, one launch an op). A channels-last x, gamma and beta
+    (as the bf16 SPADE net makes them) are timed writing channels-last
+    (``ms_channels_last``) beside a contiguous y from contiguous gamma and beta
+    (``ms_channels_last_to_nchw``); the two results must be equal bit for bit."""
     g = torch.Generator(device="cuda").manual_seed(b + 71)
     rows = []
     for c, r, emb in sorted(set(shapes)):
@@ -2358,12 +2535,22 @@ def spade_rows(torch, groupnorm, shapes, dtype, b):
                 dtype).chunk(2, dim=1)
         args = (x, 32, 1e-6, None, None, scale, shift, True, dtype)
         kw = {"gamma": gamma, "beta": beta}
+        cl = torch.channels_last
+        args_cl = (x.contiguous(memory_format=cl),) + args[1:8]
+        kw_cl = {k: v.contiguous(memory_format=cl) for k, v in kw.items()}
         with torch.no_grad():
             out = groupnorm.group_norm_act(*args, **kw)
             ref = groupnorm.group_norm_plain(*args, **kw)
             again = groupnorm.group_norm_act(*args, **kw)
+            out_cl = groupnorm.launch(*args_cl, **kw_cl)
+            out_cl_nchw = groupnorm.launch(*args_cl, **kw, out_channels_last=False)
             torch.cuda.synchronize()
             err, share, ok = groupnorm_error(torch, out, ref)
+            err_cl, _, ok_cl = groupnorm_error(torch, out_cl, ref)
+            if not (ok_cl and out_cl.is_contiguous(memory_format=cl)
+                    and torch.equal(out_cl, out_cl_nchw)):
+                fail(f"spade norm {c}x{r} B={b} {dtype}: the channels-last output (max |diff| "
+                     f"{err_cl} from plain) differs from the contiguous one of the same input")
             if not ok:
                 fail(f"spade norm {c}x{r} B={b} {dtype}: kernel against plain max |diff| {err}, "
                      f"differing share {share}, max |plain| {ref.float().abs().max().item()}")
@@ -2371,6 +2558,9 @@ def spade_rows(torch, groupnorm, shapes, dtype, b):
                 fail(f"spade norm {c}x{r} B={b} {dtype}: two launches differ")
             iters = 20 if b * c * r * r >= 1 << 22 else 100
             ms = graph_ms(torch, lambda: groupnorm.group_norm_act(*args, **kw), iters)
+            ms_cl = graph_ms(torch, lambda: groupnorm.launch(*args_cl, **kw_cl), iters)
+            ms_cl_nchw = graph_ms(torch, lambda: groupnorm.launch(
+                *args_cl, **kw, out_channels_last=False), iters)
             plain_ms = graph_ms(torch, lambda: groupnorm.group_norm_plain(*args, **kw), iters)
         plan = groupnorm.groupnorm_plan(b, c, r * r, 32, dtype)
         bound = 4.0 * x.numel() * x.element_size() / HBM_BPS * 1e3
@@ -2379,15 +2569,16 @@ def spade_rows(torch, groupnorm, shapes, dtype, b):
                      "per_unet_call": shapes.count((c, r, emb)), "splits": plan.splits,
                      "blocks": plan.blocks, "max_abs_err": err,
                      "max_abs_plain": ref.float().abs().max().item(), "differ_share": share,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                     "share_of_bound": bound / ms})
+                     "ms": ms, "ms_channels_last": ms_cl, "ms_channels_last_to_nchw": ms_cl_nchw,
+                     "plain_ms": plain_ms, "bound_ms": bound, "share_of_bound": bound / ms})
         log("spade_shape " + json.dumps(rows[-1]))
     return rows
 
 
 def spade_per_call(rows):
     """``spade_rows`` summed over one SPADE call's modulated norms."""
-    tot = {k: sum(r[k] * r["per_unet_call"] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    tot = {k: sum(r[k] * r["per_unet_call"] for r in rows)
+           for k in ("ms", "ms_channels_last", "ms_channels_last_to_nchw", "plain_ms", "bound_ms")}
     tot["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
     tot["launches_per_unet_call"] = sum(r["per_unet_call"] for r in rows)
@@ -2417,9 +2608,10 @@ def spade_unet_calls(torch, groupnorm):
         xs = x.to(dtype)
         tag = f"{str(dtype).replace('torch.', '')}_B1"
         with torch.no_grad():
-            groupnorm.reset_launches()
+            reset_unet_counts()
             got = net(xs, t, cond)
             launches = (groupnorm.spade_launches, groupnorm.launches)
+            _, cl_writes, fir = unet_counts()
             with mock.patch.object(spade, "group_norm_act", groupnorm.group_norm_plain):
                 ref = net(xs, t, cond)
                 plain_ms = graph_ms(torch, lambda: net(xs, t, cond), 3)
@@ -2428,12 +2620,17 @@ def spade_unet_calls(torch, groupnorm):
             err = (got.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
         out[tag] = {"spade_launches_a_call": launches[0], "groupnorm_launches_a_call": launches[1],
+                    "channels_last_writes_a_call": cl_writes, "fir_launches_a_call": fir,
                     "max_abs_err": err, "max_abs_plain": scale, "kernel_ms": kernel_ms,
                     "plain_ms": plain_ms}
         log(f"spade unet {tag}: " + json.dumps(out[tag]))
         if launches != (SPADE_PER_CALL, SPADE_GN_PER_CALL):
             fail(f"the SPADE UNet {tag} launched the SPADE entry {launches[0]} and the plain "
                  f"entry {launches[1]} times, not {SPADE_PER_CALL} and {SPADE_GN_PER_CALL}")
+        want_cl = sum(launches) if dtype == torch.bfloat16 else 0
+        if cl_writes != want_cl or fir != FIR_PER_CALL:
+            fail(f"the SPADE UNet {tag}: {cl_writes} GroupNorm launches wrote channels-last, "
+                 f"not {want_cl}, and {fir} FIR launches ran, not {FIR_PER_CALL}")
         tol = GN_UNET_REL_TOL[str(dtype).replace("torch.", "")]
         if not (torch.isfinite(got).all() and scale > 1e-2 and err <= tol * scale):
             fail(f"the SPADE UNet {tag} through the SPADE entry disagrees with the plain "
@@ -2668,11 +2865,11 @@ def phase_bf16_unet(torch, attn, layers, predictor, pred16):
         x16, cond16 = x.to(torch.bfloat16), cond.to(torch.bfloat16)
         with torch.no_grad(), batched_conv_algorithms(b, "cuda"):
             before = attn.launches
-            groupnorm.reset_launches()
+            reset_unet_counts()
             out = pred16.model(x16, t, cond16)
             torch.cuda.synchronize()
             n = attn.launches - before
-            gn = groupnorm.launches
+            gn, gn_cl, fir = unet_counts()
             with mock.patch.object(layers, "attention", attn.attention_plain):
                 ref = pred16.model(x16, t, cond16)
             f32 = predictor.model(x, t, cond)
@@ -2702,7 +2899,7 @@ def phase_bf16_unet(torch, attn, layers, predictor, pred16):
             fail(f"the bf16 UNet at B = {b} returned {out.dtype}, finite {row['finite']}")
         if n != sum(k for *_, k in LEVELS):
             fail(f"the bf16 UNet at B = {b} launched {n} attention kernels, not 10")
-        check_groupnorm_launches(gn, 1, f"the bf16 UNet at B = {b}")
+        check_groupnorm_launches(gn, 1, f"the bf16 UNet at B = {b}", gn_cl, fir, bf16=True)
         if not (row["kernel_vs_plain_max_rel"] <= BF16_KERNEL_MAX_REL and row[
                 "eps_vs_f32_mean_rel"] <= BF16_KERNEL_MEAN_VS_PLAIN * row["plain_vs_f32_mean_rel"]):
             fail(f"the bf16 UNet at B = {b} through the kernel disagrees with the plain "
@@ -3572,6 +3769,7 @@ def main() -> None:
     log(f"build: {time.perf_counter() - t0:.1f} s")
     if GROUPNORM_ONLY in sys.argv[1:]:
         phase_groupnorm(torch, layers)
+        phase_fir_kernel(torch)
         log(f"groupnorm-only: the script took {time.perf_counter() - t_start:.1f} s")
         return
     if SPADE_ONLY in sys.argv[1:]:
@@ -3608,6 +3806,7 @@ def main() -> None:
     rows = phase_kernels(torch, attn, ptxas)
     zoo_rows = phase_kernels_zoo(torch, attn, ptxas)
     gn_calls = phase_groupnorm_kernel(torch)
+    fir_calls = phase_fir_kernel(torch)
     if "--sweep" in sys.argv[1:]:
         phase_sweep(torch, attn)
     if KERNELS_ONLY in sys.argv[1:]:
@@ -3798,6 +3997,7 @@ def main() -> None:
                 for name, *_ in ZOO},
         "attention_per_unet_call": calls,
         "groupnorm_per_unet_call": gn_calls,
+        "fir_per_unet_call": fir_calls,
         "attention_3d_per_unet_call": {
             dt: {k: sum(r[k] * r["per_unet_call"] for r in zoo_rows if r["dtype"] == dt)
                  for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -3812,13 +4012,32 @@ def main() -> None:
                                                 "bound_by", "library_ms")}}
                for dt, name in (("float32", "attention"), ("bfloat16", "attention_tc"))]
     # GroupNorm + scale/shift + SiLU, which XLA fused: float32's 81 launches of
-    # one UNet call at B = 1, bf16's beside them
-    gn_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # one UNet call at B = 1 (a contiguous x, as the float32 UNet runs it),
+    # bf16's beside them on a channels-last x writing channels-last, as the
+    # bf16 UNet runs it (the contiguous input's time kept as ms_contiguous)
+    gn_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+               "share_of_bound")
+    gn16 = gn_calls["bfloat16"]
     kernels.append({"name": "groupnorm", "route": "cuda",
                     "source": f"tvc_torch/csrc/{_build.SOURCES['groupnorm']}",
                     "replaces": "none: tvc/models/diffusion/layers.py:258-287, fused by XLA",
                     "launches": GROUPNORM_LAUNCHES, **{k: gn_calls["float32"][k] for k in gn_keys},
-                    "bfloat16": {k: gn_calls["bfloat16"][k] for k in gn_keys}})
+                    "bfloat16": {**{k: gn16[k] for k in gn_keys}, "layout": "channels_last",
+                                 "ms": gn16["ms_channels_last"],
+                                 "share_of_bound": gn16["share_of_bound_channels_last"],
+                                 "ms_contiguous": gn16["ms"],
+                                 "share_of_bound_contiguous": gn16["share_of_bound"]}})
+    # the polyphase FIR resampling, which XLA fused: float32's 16 launches of
+    # one UNet call at B = 1 (NCHW planes), bf16's at B = 1 and 8 (channels-last)
+    fir_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+                "layout")
+    kernels.append({"name": "fir", "route": "cuda",
+                    "source": f"tvc_torch/csrc/{_build.SOURCES['fir']}",
+                    "replaces": "none: tvc/ops/resample.py polyphase form, fused by XLA",
+                    "launches": FIR_LAUNCHES,
+                    **{k: fir_calls["float32_B1"][k] for k in fir_keys},
+                    "bfloat16": {k: fir_calls["bfloat16_B1"][k] for k in fir_keys},
+                    "bfloat16_B8": {k: fir_calls["bfloat16_B8"][k] for k in fir_keys}})
     print(json.dumps({"kernels": kernels}))
     print(smi_name_power())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -242,8 +242,14 @@ def _gn_inputs(b, c, spatial, dtype, mode, seed=0):
     return x, w, bias, scale, shift
 
 
-def _gn_close(got, want):
-    assert got.dtype == want.dtype and got.shape == want.shape and got.is_contiguous()
+def _gn_close(got, want, layout_of=None):
+    """``got`` within the tolerances above, laid out as ``layout_of`` (the
+    kernel's input: it writes the layout it reads), contiguous by default."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if layout_of is None:
+        assert got.is_contiguous()
+    else:
+        assert got.stride() == layout_of.stride()
     scale = max(1.0, want.float().abs().max().item())
     diff = (got.float() - want.float()).abs()
     if want.dtype == torch.float32:
@@ -355,9 +361,10 @@ def test_groupnorm_spade_kernel_matches_plain_at_spade_shapes(cuda, shape, dtype
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_groupnorm_spade_kernel_layouts_and_modes_match_plain(cuda, dtype, monkeypatch):
-    """The SPADE entry at B = 8, on a channels-last x, without SiLU, on
-    channels-last gamma and beta (copied contiguous by the wrapper), a ragged
-    shape (one element a load) and both TVC_GN_BF16_IO settings."""
+    """The SPADE entry at B = 8, on a channels-last x (gamma and beta copied
+    channels-last by the wrapper, the result channels-last), without SiLU, on
+    channels-last gamma and beta (copied contiguous for a contiguous x), a
+    ragged shape (one element a load) and both TVC_GN_BF16_IO settings."""
     for io in ("0", "1"):
         monkeypatch.setenv("TVC_GN_BF16_IO", io)
         for b, c, r, silu in ((8, 768, 8, True), (1, 384, 64, False), (3, 64, 5, True)):
@@ -369,7 +376,7 @@ def test_groupnorm_spade_kernel_layouts_and_modes_match_plain(cuda, dtype, monke
                                (x, gamma.contiguous(memory_format=cl),
                                 beta.contiguous(memory_format=cl))):
                 _gn_close(groupnorm.group_norm_act(xx, 32, 1e-6, None, None, scale, shift, silu,
-                                                   dtype, gamma=gg, beta=bb), want)
+                                                   dtype, gamma=gg, beta=bb), want, layout_of=xx)
 
 
 def test_groupnorm_spade_rejects_bad_input(cuda):
@@ -417,9 +424,9 @@ def test_groupnorm_kernel_reruns_are_bit_identical(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_groupnorm_kernel_reads_channels_last(cuda, dtype):
-    """A channels-last input (the UNet's residual stream) is read as it lies,
-    into a contiguous output: split, packed, ragged and 5-D, the same bits on
-    a rerun."""
+    """A channels-last input (the bf16 UNet's activations) is read as it lies,
+    into a channels-last output: split, packed, ragged and 5-D, the same bits
+    on a rerun."""
     for b, c, spatial, mode in ((1, 192, (128, 128), "affine"), (8, 384, (64, 64), "emb"),
                                 (8, 768, (8, 8), "emb"), (3, 64, (5, 6), "param_free"),
                                 (1, 192, (7, 32, 32), "emb")):
@@ -428,9 +435,102 @@ def test_groupnorm_kernel_reads_channels_last(cuda, dtype):
         assert not xcl.is_contiguous()
         got = groupnorm.group_norm_act(xcl, 32, 1e-5, w, bias, scale, shift, True, dtype)
         _gn_close(got, groupnorm.group_norm_plain(x, 32, 1e-5, w, bias, scale, shift, True,
-                                                  dtype))
+                                                  dtype), layout_of=xcl)
         assert torch.equal(got, groupnorm.group_norm_act(xcl, 32, 1e-5, w, bias, scale, shift,
                                                          True, dtype))
+
+
+LAYOUT_CASES = [(torch.bfloat16, 1), (torch.bfloat16, 8), (torch.float32, 1)]
+
+
+@pytest.mark.parametrize("entry", ["plain", "spade"])
+@pytest.mark.parametrize("dtype,b", LAYOUT_CASES, ids=["bf16_B1", "bf16_B8", "f32_B1"])
+def test_groupnorm_kernel_channels_last_output_is_its_contiguous_output(cuda, dtype, b, entry):
+    """Every norm shape of a concat call (the plain entry, as the UNet runs
+    it) and of a SPADE call (the SPADE entry, gamma and beta channels-last):
+    from one channels-last input, the channels-last output equals the
+    contiguous one bit for bit (only the store's addresses differ), and each
+    channels-last write is counted."""
+    shapes = GN_SHAPES if entry == "plain" else [(c, r, e) for c, r in SPADE_SHAPES
+                                                 for e in (True, False)]
+    for c, r, emb in shapes:
+        if entry == "plain":
+            x, w, bias, scale, shift = _gn_inputs(b, c, (r, r), dtype, "emb" if emb else "affine",
+                                                  seed=c + r)
+            kw = {}
+        else:
+            x, scale, shift, gamma, beta = _spade_inputs(b, c, r, dtype, emb, seed=c + r)
+            w = bias = None
+            kw = {"gamma": gamma.contiguous(memory_format=torch.channels_last),
+                  "beta": beta.contiguous(memory_format=torch.channels_last)}
+        xcl = x.contiguous(memory_format=torch.channels_last)
+        args = (xcl, 32, 1e-5, w, bias, scale, shift, True)
+        before = groupnorm.channels_last_writes
+        with torch.no_grad():
+            got = groupnorm.launch(*args, **kw)
+            flat = groupnorm.launch(*args, **kw, out_channels_last=False)
+        assert groupnorm.channels_last_writes == before + 1
+        assert got.stride() == xcl.stride() and flat.is_contiguous()
+        assert torch.equal(got, flat), (c, r, emb)
+
+
+def test_groupnorm_kernel_writes_channels_last_only_from_channels_last(cuda):
+    x = torch.randn(2, 64, 8, 8, device="cuda")
+    with pytest.raises(ValueError):
+        groupnorm.launch(x, 32, 1e-5, out_channels_last=True)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["axes", "fused"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("up", [True, False], ids=["up", "down"])
+def test_fir_kernel_is_the_polyphase_ops_byte_for_byte(cuda, dtype, up, fused):
+    """``csrc/fir.cu`` against the ops of ``ops/resample.py`` it replaces on
+    the card (the two axis passes, or the one-pass form): the flagship's
+    resampled shapes at B = 8, a ragged one (one element a load), an odd
+    one, an unaligned view and the NCHW planes of each, the same bytes, one
+    launch each."""
+    from tvc_torch.ops import resample
+
+    k4 = resample._separable_4tap((1, 3, 3, 1))
+    gain = 4.0 if up else 1.0
+    taps = resample._taps(k4 * (gain ** 0.5), dtype)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for shape in ((8, 64, 64, 192), (8, 16, 16, 576), (2, 6, 4, 7), (2, 7, 5, 3)):
+        x = (torch.randn(shape, generator=g, device="cuda") * 3).to(dtype)
+        want = resample._polyphase(x, taps, up, resample.NHWC, fused)
+        unaligned = torch.randn((x.numel() + 1,), generator=g, device="cuda").to(dtype)[1:]
+        for xx, axes in ((x, resample.NHWC), (unaligned.view(shape).copy_(x), resample.NHWC),
+                         (x.permute(0, 3, 1, 2).contiguous(), resample.NCHW)):
+            before = resample.launches
+            got = resample._fir_card(xx, taps, up, axes, fused)
+            assert resample.launches == before + 1
+            if axes == resample.NCHW:
+                assert got.is_contiguous()
+                got = got.permute(0, 2, 3, 1)
+            assert got.shape == want.shape and torch.equal(got, want), (shape, axes)
+
+
+def test_fir_kernel_gradient_is_the_ops_gradient(cuda):
+    """Where autograd records, the kernel runs (``KernelFIR``) and x's
+    gradient is the ops' own, in x's layout."""
+    from tvc_torch.ops import resample
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((2, 64, 16, 16), generator=g, device="cuda").to(torch.bfloat16)
+    for xx in (x, x.contiguous(memory_format=torch.channels_last)):
+        for fn, up in ((resample.upsample_2d, True), (resample.downsample_2d, False)):
+            leaf = xx.clone().requires_grad_()
+            before = resample.launches
+            y = fn(leaf, spatial_axes=resample.NCHW)
+            assert resample.launches == before + 1 and y.grad_fn is not None
+            dy = torch.randn(y.shape, generator=g, device="cuda").to(y.dtype)
+            (got,) = torch.autograd.grad(y, leaf, dy)
+            ref = xx.clone().requires_grad_()
+            taps = resample._taps(resample._separable_4tap((1, 3, 3, 1)) * (2.0 if up else 1.0),
+                                  x.dtype)
+            (want,) = torch.autograd.grad(resample._polyphase(ref, taps, up, resample.NCHW,
+                                                              False), ref, dy)
+            assert got.stride() == xx.stride() and torch.equal(got, want)
 
 
 def test_groupnorm_kernel_rejects_bad_input(cuda):
@@ -973,6 +1073,97 @@ def test_bf16_graph_equals_eager_bit_for_bit(cuda):
         for out in outs:
             assert out.dtype == torch.float32 and torch.equal(out, eager)
         assert torch.equal(masters.generate(cond, x_init=x_init, noise=noise), outs[0])
+
+
+def test_bf16_unet_call_runs_no_layout_conversion(cuda):
+    """One full-width bf16 UNet call at B = 8 on bf16-stored weights, as the
+    lockstep runner makes it, runs channels-last end to end: a profile of it
+    has no cuDNN kernel converting NCHW to NHWC or back, every GroupNorm
+    writes channels-last (81 a call) and the output is finite; the float32
+    call at B = 1 writes none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = Config()
+    model = UNetMoreDDPM(cfg, device="cuda").eval()
+    stored = {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v
+              for k, v in model.state_dict().items()}
+    net = model.with_dtype(torch.bfloat16, stored)
+    del stored
+    size, ch = cfg.data.image_size, cfg.data.channels
+    per_call = len(groupnorm_shapes(NCSNppSpec.from_config(cfg)))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for dtype, b, unet in ((torch.bfloat16, 8, net), (torch.float32, 1, model)):
+        x = torch.randn((b, size, size, ch * cfg.data.num_frames), generator=g,
+                        device="cuda").to(dtype)
+        cond = torch.randn((b, size, size, ch * cfg.data.num_frames_cond), generator=g,
+                           device="cuda").to(dtype)
+        t = torch.full((b,), 500, device="cuda")
+        with torch.no_grad():
+            unet(x, t, cond)  # cuDNN's first choice of algorithms, the weights stored
+            torch.cuda.synchronize()
+            groupnorm.reset_launches()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = unet(x, t, cond)
+                torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all()
+        writes = groupnorm.channels_last_writes
+        if dtype == torch.bfloat16:
+            assert writes == per_call == 81
+            names = [e.key for e in prof.key_averages()]
+            assert not [n for n in names if "nchwToNhwc" in n or "nhwcToNchw" in n], names
+        else:
+            assert writes == 0
+
+
+def test_unet_calls_count_channels_last_writes_at_each_replay(cuda):
+    """``groupnorm.channels_last_writes``: 81 a bf16 call of the narrow net
+    of the flagship's topology (eager and at each graph replay, the graph's
+    stats included), 0 a float32 call."""
+    from tvc_torch.samplers.graph import GraphedEps
+
+    cfg, model, model16 = _bf16_unet()
+    per_call = len(groupnorm_shapes(NCSNppSpec.from_config(cfg)))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((1, 32, 32, 15), generator=g, device="cuda")
+    cond = torch.randn((1, 32, 32, 6), generator=g, device="cuda")
+    t = torch.tensor([10], device="cuda")
+    with torch.no_grad():
+        for net, writes in ((model16, per_call), (model, 0)):
+            graphed = GraphedEps(net)
+            groupnorm.reset_launches()
+            for _ in range(4):  # eager, capture + replay, 2 replays
+                graphed(x.to(net.dtype), t, cond.to(net.dtype))
+            assert groupnorm.channels_last_writes == 4 * writes
+            assert groupnorm.launches == 4 * per_call
+            (st,) = graphed.stats().values()
+            assert st["channels_last_writes"] == writes
+
+
+def test_unet_calls_count_fir_launches_at_each_replay(cuda):
+    """``resample.launches``: the FIR kernel runs every polyphase resampling
+    of a UNet call, two a BigGAN up or down block, in bf16 and float32
+    (eager and at each graph replay, the graph's stats included)."""
+    from tvc_torch.models.diffusion.layers import ResnetBlockBigGAN
+    from tvc_torch.ops import resample
+    from tvc_torch.samplers.graph import GraphedEps
+
+    cfg, model, model16 = _bf16_unet()
+    per_call = sum(2 for m in model.modules()
+                   if isinstance(m, ResnetBlockBigGAN) and (m.up or m.down))
+    assert per_call == 16
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((1, 32, 32, 15), generator=g, device="cuda")
+    cond = torch.randn((1, 32, 32, 6), generator=g, device="cuda")
+    t = torch.tensor([10], device="cuda")
+    with torch.no_grad():
+        for net in (model16, model):
+            graphed = GraphedEps(net)
+            resample.reset_launches()
+            for _ in range(4):  # eager, capture + replay, 2 replays
+                graphed(x.to(net.dtype), t, cond.to(net.dtype))
+            assert resample.launches == 4 * per_call
+            (st,) = graphed.stats().values()
+            assert st["fir_launches"] == per_call
 
 
 def test_precision_schedule_covering_every_step_is_f32_on_card(cuda):

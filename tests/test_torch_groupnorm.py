@@ -213,17 +213,32 @@ def test_plan_covers_every_pixel_within_the_card(b, dtype):
         assert 1 <= plan.splits <= groupnorm.MAX_SPLITS
         assert (plan.splits - 1) * plan.pix < hw <= plan.splits * plan.pix
         assert plan.vec == 16 // esize and plan.pix % plan.vec == 0
-        assert plan.ldb == plan.pix + (plan.vec if cl else 0)  # a 16-byte gap a channel run
-        assert plan.pairs == (cl and dtype == BF16)  # channels even a group: two a load
+        cg = c // 32
+        wide = c // (16 // esize) > groupnorm.THREADS  # more runs a pixel than threads
+        small = cg * hw * esize < groupnorm.SPLIT_BYTES and (
+            b * 32 >= groupnorm.FILL_BLOCKS // 2 or wide)
+        if cl and small:  # one block a slice, runs of a pixel's group
+            assert plan.chunk == 0 and cg % plan.run == 0 and plan.run * esize in (2, 4, 8, 16)
+            assert plan.run * esize == 16 or cg % (2 * plan.run) != 0
+        elif cl:  # a pixel's channels in runs of 16 bytes' worth, halved until they divide C;
+            # chunks of whole rows of a block's pixels, enough of them to fill the card
+            assert c % plan.run == 0 and plan.run * esize in (2, 4, 8, 16)
+            assert plan.run * esize == 16 or c % (2 * plan.run) != 0
+            rows = groupnorm.THREADS // (c // plan.run)
+            assert plan.chunk % rows == 0 or plan.chunk == hw
+            blocks = b * -(-hw // plan.chunk)  # of each kernel: the card filled within 2x
+            assert blocks >= min(groupnorm.FILL_BLOCKS // 2, b * -(-hw // rows))
+        else:
+            assert plan.run == plan.chunk == 0
         assert plan.splits & (plan.splits - 1) == 0  # a power of two at these shapes
         # the part and each channel's coefficients (16 bytes) within what a block may take
         assert plan.resident and plan.smem <= 200 * 1024
-        assert plan.smem == (c // 32) * (plan.ldb * esize + 16)
+        assert plan.smem == cg * (plan.pix * esize + 16)
         assert plan.blocks == plan.splits * b * 32
         if b == 1 and r == 128:  # 32 slices spread over 8 blocks or more each
             assert plan.splits >= 8
         if b == 8 and plan.splits > 1:  # 256 slices fill the card: split only for size
-            assert (c // 32) * r * r * esize > groupnorm.SPLIT_BYTES
+            assert cg * r * r * esize > groupnorm.SPLIT_BYTES
 
 
 def test_plan_reads_large_slices_again_and_rejects_what_it_cannot_run():
@@ -236,6 +251,10 @@ def test_plan_reads_large_slices_again_and_rejects_what_it_cannot_run():
         groupnorm.groupnorm_plan(1, 64, 64, 32, torch.float16)
     with pytest.raises(ValueError):
         groupnorm.groupnorm_plan(1, 60, 64, 32, torch.float32)
+    # a channels-last x streamed in more runs a pixel than a block has threads
+    assert groupnorm.groupnorm_plan(1, 2048, 64 * 64, 32, BF16, True).chunk > 0
+    with pytest.raises(ValueError):
+        groupnorm.groupnorm_plan(1, 4096, 64 * 64, 32, BF16, True)
 
 
 def test_cpu_rejects_what_the_card_rejects():
@@ -257,9 +276,11 @@ def test_cpu_rejects_what_the_card_rejects():
 
 
 def test_graph_replays_count_the_captured_launches(monkeypatch):
-    """``GraphedEps`` adds a graph's captured GroupNorm launches at each
-    replay, as it does the attention kernels' (a CPU stand-in for the graph:
-    the capture counts 81 captured launches, the replay reruns the call)."""
+    """``GraphedEps`` adds a graph's captured GroupNorm and FIR launches at
+    each replay, as it does the attention kernels' (a CPU stand-in for the
+    graph: the capture counts 81 and 16 captured launches, the replay reruns
+    the call)."""
+    from tvc_torch.ops import resample
     from tvc_torch.samplers import graph as graph_mod
 
     class Replayer:
@@ -272,18 +293,22 @@ def test_graph_replays_count_the_captured_launches(monkeypatch):
     def capture(fn, inputs):
         out = fn(**inputs)
         groupnorm.captured += 81
+        resample.captured += 16
         return Replayer(fn, inputs, out), out, 0, 0
 
     monkeypatch.setattr(graph_mod, "capture", capture)
     g = graph_mod.GraphedEps(lambda x, labels, cond=None: x + labels.float()[:, None])
     x, labels = torch.zeros(2, 3), torch.tensor([1, 2])
     groupnorm.reset_launches()
+    resample.reset_launches()
     g(x, labels)  # the eager warm-up (on the CPU: no launch)
-    assert groupnorm.launches == 0
+    assert groupnorm.launches == resample.launches == 0
     for k in (1, 2, 3):  # the capture and its replay, then replays
         g(x, labels)
-        assert groupnorm.launches == 81 * k
+        assert groupnorm.launches == 81 * k and resample.launches == 16 * k
     (st,) = g.stats().values()
     assert st["groupnorm_launches"] == 81 and st["replays"] == 3
+    assert st["fir_launches"] == 16
+    resample.reset_launches()
     groupnorm.reset_launches()
     assert groupnorm.launches == 0

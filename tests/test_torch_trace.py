@@ -156,7 +156,8 @@ def test_off_records_nothing_and_opens_no_profiler_range(runs):
     rec = runs[3]
     assert rec["spans"] == []
     assert set(rec["counters"]) == {"attention.kernel_launches", "groupnorm.kernel_launches",
-                                    "groupnorm.spade_launches"}
+                                    "groupnorm.spade_launches", "groupnorm.channels_last_writes",
+                                    "resample.fir_launches"}
     # the fields the program reports are read all the same
     assert len(gop.update_s) == 7 and len(gop.keyframe_s) == 3 and gop.wall_time > 0
 

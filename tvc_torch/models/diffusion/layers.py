@@ -1,7 +1,9 @@
 """NCSN++ layer library in PyTorch (counterpart of ``tvc/models/diffusion/layers.py``).
 
 Modules take and return NCHW tensors; the UNet's public forward converts from
-and to the JAX package's NHWC. Parameter names follow the reference PyTorch
+and to the JAX package's NHWC. Each module returns the memory format it
+receives (contiguous or channels-last); the UNet chooses one at its entry
+(``ops/layout.activation_layout``). Parameter names follow the reference PyTorch
 state dict (``Conv_0.weight``, ``GroupNorm_0.weight``, ``NIN_0.W``,
 ``actnorm0.Dense_0.weight`` ...), so a reference checkpoint loads as it is.
 Numerics follow the JAX package: GroupNorm eps 1e-6 in the attention block
@@ -37,6 +39,7 @@ from torch import nn
 
 from tvc_torch.ops.attention import attention
 from tvc_torch.ops.groupnorm import group_norm_act
+from tvc_torch.ops.layout import like
 from tvc_torch.ops.resample import (NCHW, conv_downsample_2d, downsample_2d, upsample_2d,
                                     upsample_conv_2d)
 
@@ -256,7 +259,9 @@ class AttnBlockpp(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         t, heads = h * w, self.heads
-        tok = self.GroupNorm_0(x).flatten(2).transpose(1, 2)  # (B, T, C)
+        # (B, T, C): a channels-last activation as it lies (a view), else a
+        # transposed view of the NCHW one
+        tok = self.GroupNorm_0(x).flatten(2).transpose(1, 2)
 
         def split_heads(y):  # (B, T, C) -> a (B, heads, T, C / heads) view
             return y.view(b, t, heads, c // heads).transpose(1, 2)
@@ -265,7 +270,8 @@ class AttnBlockpp(nn.Module):
                         split_heads(self.NIN_2(tok)))
         # on the card the kernel's output lies as (B, T, heads, d): a view, no copy
         out = self.NIN_3(out.transpose(1, 2).reshape(b, t, c))
-        out = out.transpose(1, 2).reshape(b, c, h, w)
+        # a channels-last view of the (B, T, C) tokens, laid out as x
+        out = like(out.transpose(1, 2).reshape(b, c, h, w), x)
         if not self.skip_rescale:
             return x + out
         return (x + out) / _SQRT2
@@ -364,8 +370,8 @@ class ResnetBlockDDPM(nn.Module):
         h = self.Conv_1(F.silu(self.GroupNorm_1(h)))
         if hasattr(self, "Conv_2"):
             x = self.Conv_2(x)
-        elif hasattr(self, "NIN_0"):  # over the channel axis
-            x = self.NIN_0(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        elif hasattr(self, "NIN_0"):  # over the channel axis; views of a channels-last x
+            x = like(self.NIN_0(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2), x)
         if not self.skip_rescale:
             return x + h
         return (x + h) / _SQRT2

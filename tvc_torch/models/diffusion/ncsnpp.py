@@ -4,7 +4,13 @@ The module list is generated by the same recipe as the reference
 ``ncsnpp_more.py``, so module ``i`` is ``all_modules.{i}`` and a reference
 state dict (``checkpoint_*.pt``) loads with no converter. The public forward
 takes and returns NHWC tensors, as the JAX package does; inside, activations
-are NCHW, the layout cuDNN's convolutions want.
+are NCHW tensors in one memory format for the whole call, chosen at the entry
+by ``ops/layout.activation_layout`` from the device type and the compute
+dtype: channels-last for bf16 on the card (cuDNN's bf16 kernels are NHWC
+ones, so no activation is converted around them; the weights stay as
+stored, which the caller may share, and are laid out channels-last a call),
+contiguous for float32 on the card, and on the CPU the channels-last view of
+the NHWC input, as before.
 
 ``UNetMoreDDPM`` builds the network ``cfg`` names, as the JAX package's
 does: this 2-D NCSN++ (with the positional or Fourier time embedding and the
@@ -42,6 +48,7 @@ from tvc_torch.models.diffusion.layers import (
     ResnetBlockBigGAN,
     get_timestep_embedding,
 )
+from tvc_torch.ops.layout import activation_layout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,6 +222,9 @@ class NCSNpp(nn.Module):
         if cond is not None:
             x = torch.cat([x, cond], dim=-1)
         x = x.to(self.dtype).permute(0, 3, 1, 2)
+        fmt = activation_layout(x.device.type, self.dtype)
+        if fmt is not None:  # one activation layout through the call
+            x = x.contiguous(memory_format=fmt)
 
         if spec.embedding_type == "fourier":
             temb = mods[0](torch.log(time_cond.float())).to(self.dtype)

@@ -7,16 +7,19 @@ normalizes without an affine map and modulates by ``(1 + gamma)`` and
 resized (nearest, PyTorch's rule ``src = floor(dst * in / out)``) to each
 feature map. Module order and names follow the reference ``SPADE_NCSNpp``,
 so module ``i`` is ``all_modules.{i}`` and the SPADE net is
-``Norm_0.mlp_shared.0`` / ``mlp_gamma`` / ``mlp_beta``. NCHW inside; the
-public forward takes and returns NHWC, as the JAX package's does.
+``Norm_0.mlp_shared.0`` / ``mlp_gamma`` / ``mlp_beta``. NCHW inside, in the
+memory format ``ops/layout.activation_layout`` chooses at the entry, as the
+concat NCSN++ (``ncsnpp.py``); the public forward takes and returns NHWC, as
+the JAX package's does.
 
 Each of the 71 modulated norms of a call (two a residual block and the final
 ``actnorm``; the attention blocks keep their affine GroupNorm) is one call of
 ``ops/groupnorm.group_norm_act`` with ``gamma`` and ``beta``: the norm, the
 modulation, the time embedding's scale and shift and SiLU in one launch of
 the GroupNorm kernel's SPADE entry on the card, the plain composition on the
-CPU. The conditioning frames enter the SPADE branch contiguous (NCHW), so
-that its convolutions write gamma and beta in the layout the kernel reads.
+CPU. The conditioning frames enter the SPADE branch in the activations'
+layout (on the CPU contiguous, as before), so that its convolutions write
+gamma and beta in the layout the kernel reads them in.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from tvc_torch.core.config import Config
 from tvc_torch.models.diffusion.layers import (AttnBlockpp, DDPMConv, Dense, GroupNormRef,
                                                get_timestep_embedding)
 from tvc_torch.ops.groupnorm import group_norm_act
+from tvc_torch.ops.layout import activation_layout
 from tvc_torch.ops.resample import NCHW, downsample_2d, upsample_2d
 
 _SQRT2 = math.sqrt(2.0)
@@ -183,7 +187,12 @@ class SPADENCSNpp(nn.Module):
         spec, mods = self.spec, self.all_modules
         num_resolutions = len(spec.ch_mult)
         x = x.to(self.dtype).permute(0, 3, 1, 2)
-        seg = cond.permute(0, 3, 1, 2).contiguous()
+        seg = cond.permute(0, 3, 1, 2)
+        fmt = activation_layout(x.device.type, self.dtype)
+        if fmt is None:
+            seg = seg.contiguous()
+        else:  # one activation layout through the call, the SPADE branch's included
+            x, seg = x.contiguous(memory_format=fmt), seg.contiguous(memory_format=fmt)
         m_idx = 0
         temb = None
         if spec.time_conditional:

@@ -31,7 +31,7 @@ BUILD = PKG / "build"
 
 # kernel name -> source file under csrc/
 SOURCES = {"attention": "attention.cu", "attention_tc": "attention_tc.cu",
-           "groupnorm": "groupnorm.cu"}
+           "groupnorm": "groupnorm.cu", "fir": "fir.cu"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -14,7 +14,10 @@ of x's shape, no affine weights) it is the SPADE net's modulated norm
 
     y = GroupNorm(x) * (1 + gamma) + beta  ->  [* (1 + scale) + shift]  ->  [SiLU]
 
-launched on the card as the kernel's own entry ``groupnorm_spade_fwd``. On a
+launched on the card as the kernel's own entry ``groupnorm_spade_fwd``. The
+result is laid out as ``x``: contiguous, or channels-last (the bf16 UNet's
+activations on the card), which the kernel writes as it lies; gamma and beta
+are read in that layout too. On a
 CPU tensor it runs ``group_norm_plain``, the PyTorch composition the layers
 ran before the kernel, op for op, which is also the kernel's oracle on the
 card. On a CUDA tensor it
@@ -39,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from tvc_torch.ops import _build
+from tvc_torch.ops.layout import channels_last, like
 
 MAX_SPLITS = 16     # the largest thread-block cluster an H100 schedules (8 is portable)
 # A block keeps its part of a slice in shared memory: at most SPLIT_BYTES where
@@ -54,31 +58,38 @@ MIN_PART = 8 * 1024     # a slice split to fill the card keeps parts of at least
 # shapes (PERF.md).
 FILL_BLOCKS = 256
 
+THREADS = 256  # a block's threads; a channels-last launch takes at most this many runs a pixel
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_AFFINE, _EMB, _SILU, _IO, _PARAMS_BF16, _CL_PAIRS = 1, 2, 4, 8, 16, 32
+_AFFINE, _EMB, _SILU, _IO, _PARAMS_BF16, _OUT_CL = 1, 2, 4, 8, 16, 64
 
 # Kernel launches since the last reset_launches(), of the plain entry
-# (``launches``) and of the SPADE entry (``spade_launches``); counted only
-# where the kernel is launched, never on the CPU path. A launch recorded into
-# a CUDA graph adds to ``captured`` or ``spade_captured``, and the graph's
-# owner counts its launches at each replay (``count_launches``).
+# (``launches``) and of the SPADE entry (``spade_launches``), and of either
+# writing a channels-last y (``channels_last_writes``); counted only where the
+# kernel is launched, never on the CPU path. A launch recorded into a CUDA
+# graph adds to ``captured``, ``spade_captured`` and ``channels_last_captured``
+# instead, and the graph's owner counts its launches at each replay
+# (``count_launches``).
 launches = 0
 captured = 0
 spade_launches = 0
 spade_captured = 0
+channels_last_writes = 0
+channels_last_captured = 0
 
 
 def reset_launches() -> None:
-    global launches, spade_launches
-    launches = spade_launches = 0
+    global launches, spade_launches, channels_last_writes
+    launches = spade_launches = channels_last_writes = 0
 
 
-def count_launches(n: int, spade: int = 0) -> None:
+def count_launches(n: int, spade: int = 0, cl_writes: int = 0) -> None:
     """Count ``n`` launches of the plain entry and ``spade`` of the SPADE
-    entry made by replaying a CUDA graph."""
-    global launches, spade_launches
+    entry, ``cl_writes`` of them writing a channels-last y, made by
+    replaying a CUDA graph."""
+    global launches, spade_launches, channels_last_writes
     launches += n
     spade_launches += spade
+    channels_last_writes += cl_writes
 
 
 def gn_bf16_io() -> bool:
@@ -90,14 +101,17 @@ def gn_bf16_io() -> bool:
 
 
 class GroupNormPlan(NamedTuple):
+    # a contiguous x:
     splits: int     # blocks a slice (n, group), one thread-block cluster
     pix: int        # pixels of every channel of the group a split takes; the last may take fewer
     vec: int        # elements a load: 16 bytes' worth, or 1 where the runs are not whole vectors
     resident: bool  # the part stays in shared memory between the passes
-    ldb: int        # elements between two channel runs of a part in shared memory
     blocks: int     # blocks of the launch
     smem: int       # dynamic shared memory a block, bytes: the part and 16 bytes a channel
-    pairs: bool     # channels-last bf16 with channels even a group and in all: two a load
+    # a channels-last x (0 otherwise):
+    run: int        # a pixel's channels a load and store: 16 bytes' worth, halved until it
+                    # divides the channels (the group's, with chunk 0)
+    chunk: int      # pixels a block of each of its two kernels; 0: one block a slice
 
 
 def _pow2_ceil(v: int) -> int:
@@ -119,16 +133,40 @@ def groupnorm_plan(n: int, c: int, hw: int, groups: int, dtype: torch.dtype,
     (a cluster of blocks): enough that a part keeps at most ``SPLIT_BYTES``,
     and where the launch has fewer than ``FILL_BLOCKS`` slices, enough to
     reach it while a part keeps ``MIN_PART`` bytes; at most ``MAX_SPLITS``.
-    A channels-last input's part is stored with a 16-byte gap between its
-    channel runs, which spreads the element stores over the banks; in bf16
-    with an even number of channels a group and in all it is read two
-    channels a load, which sums in another order than one a load."""
+    A channels-last input of small slices (under ``SPLIT_BYTES``) in a
+    launch of at least ``FILL_BLOCKS / 2`` of them, or of more runs a pixel
+    than a block has threads (float32 beyond 1,024 channels), takes one block
+    a slice (``chunk`` 0), ``run`` channels of a group a load; any other
+    streams through two kernels in chunks of ``chunk`` pixels a block, enough
+    chunks to reach ``FILL_BLOCKS`` blocks, a whole number of the block's
+    rows of pixels, ``run`` channels a load, at most ``THREADS`` runs a pixel
+    (a wider pixel of larger slices is refused). Both set the order of the
+    statistics' sums."""
     if dtype not in DTYPES:
         raise TypeError(f"group_norm_act supports float32 and bfloat16, got {dtype}")
     if n < 1 or c < 1 or hw < 1 or groups < 1 or c % groups:
         raise ValueError(f"no group norm plan for n={n} c={c} hw={hw} groups={groups}")
     esize = torch.finfo(dtype).bits // 8
     cg, slices = c // groups, n * groups
+    run = chunk = 0
+    if channels_last:
+        run = 16 // esize
+        while run > 1 and c % run:
+            run //= 2
+        wide = c // run > THREADS  # more runs a pixel than a streaming block has threads
+        one_block = cg * hw * esize < SPLIT_BYTES and (slices >= FILL_BLOCKS // 2 or wide)
+        if one_block:
+            run = 16 // esize
+            while run > 1 and cg % run:
+                run //= 2
+        elif wide:
+            raise ValueError(f"no channels-last plan for {c} channels of {hw} pixels in "
+                             f"{groups} groups: more than {THREADS} runs of {run} channels a "
+                             f"pixel, and a slice too large for one block")
+        else:
+            rows = THREADS // (c // run)  # pixels a block's threads take at a time
+            chunk = max(rows, math.ceil(hw / math.ceil(FILL_BLOCKS / n)))
+            chunk = min(hw, math.ceil(chunk / rows) * rows)
     vec = 16 // esize if hw % (16 // esize) == 0 else 1
     slice_bytes = cg * hw * esize
     fill = min(_pow2_ceil(math.ceil(FILL_BLOCKS / slices)), _pow2_floor(slice_bytes // MIN_PART))
@@ -136,12 +174,10 @@ def groupnorm_plan(n: int, c: int, hw: int, groups: int, dtype: torch.dtype,
                  max(_pow2_ceil(math.ceil(slice_bytes / SPLIT_BYTES)), fill))
     pix = math.ceil(math.ceil(hw / splits) / vec) * vec
     splits = math.ceil(hw / pix)
-    ldb = pix + (vec if channels_last and vec > 1 else 0)
-    part = cg * ldb * esize
+    part = cg * pix * esize
     resident = part <= SMEM_MAX
     data = -(-part // 16) * 16 if resident else 0
-    pairs = channels_last and dtype == torch.bfloat16 and cg % 2 == 0 and c % 2 == 0
-    return GroupNormPlan(splits, pix, vec, resident, ldb, splits * slices, data + 16 * cg, pairs)
+    return GroupNormPlan(splits, pix, vec, resident, splits * slices, data + 16 * cg, run, chunk)
 
 
 def _rows(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -221,7 +257,7 @@ def _kernel(spade: bool = False):
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
                        + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
-                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 9 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -230,52 +266,62 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def channels_last(x: torch.Tensor) -> bool:
-    """Whether ``x`` (N, C, *spatial) lies channels-last and not contiguous."""
-    return x.dim() > 2 and not x.is_contiguous() and x.movedim(1, -1).is_contiguous()
-
-
 def launch(x: torch.Tensor, num_groups: int, eps: float, weight=None, bias=None, scale=None,
-           shift=None, silu: bool = False, io: bool = False, gamma=None,
-           beta=None) -> torch.Tensor:
+           shift=None, silu: bool = False, io: bool = False, gamma=None, beta=None,
+           out_channels_last: Optional[bool] = None) -> torch.Tensor:
     """Launch the kernel on a CUDA tensor that ``_check`` accepts (its dtype
-    is the compute dtype), contiguous or channels-last, into a new contiguous
-    tensor, with ``groupnorm_plan``'s plan; with ``gamma`` and ``beta`` (made
-    contiguous and aligned here) its SPADE entry. Counts one launch, or one
-    capture while the stream records a CUDA graph, of the entry it runs."""
+    is the compute dtype), contiguous or channels-last, into a new tensor
+    laid out as ``x``, with ``groupnorm_plan``'s plan; with ``gamma`` and
+    ``beta`` (brought to the result's layout and aligned here) its SPADE
+    entry. Counts one launch, or one capture while the stream records a CUDA
+    graph, of the entry it runs, and of a channels-last write.
+    ``out_channels_last=False`` asks a channels-last ``x`` for a contiguous
+    result: no program path takes it; it is the oracle of the card tests and
+    ``chip_smoke.py``, which hold the channels-last result to it bit for bit.
+    ``groupnorm_plan`` refuses a channels-last x it cannot read."""
     global launches, captured, spade_launches, spade_captured
+    global channels_last_writes, channels_last_captured
     cl = channels_last(x)
     if not (cl or x.is_contiguous()):
         raise ValueError("group_norm_act's kernel expects a contiguous or channels-last "
                          f"(N, C, *spatial) tensor, got strides {x.stride()}")
+    out_cl = cl if out_channels_last is None else out_channels_last
+    if out_cl and not cl:
+        raise ValueError("the kernel writes a channels-last result from a channels-last input "
+                         "only")
     n, c = x.shape[:2]
     hw = math.prod(x.shape[2:])
     plan = groupnorm_plan(n, c, hw, num_groups, x.dtype, cl)
-    if (plan.vec > 1 and not cl and x.data_ptr() % 16) or (plan.pairs and x.data_ptr() % 4):
+    if x.data_ptr() % (16 if not cl else plan.run * x.element_size()):
         x = x.clone()  # a fresh allocation, aligned, in x's layout
+    y = torch.empty_like(x) if cl and out_cl else torch.empty(x.shape, dtype=x.dtype,
+                                                              device=x.device)
+    work = None
+    if cl and plan.chunk:  # each chunk's sums of each group, joined by the second kernel
+        work = torch.empty(2 * n * -(-hw // plan.chunk) * num_groups, dtype=torch.float32,
+                           device=x.device)
     spade = gamma is not None
     if spade:  # read at y's offsets, 16 bytes a load
-        gamma, beta = (t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(
-            memory_format=torch.contiguous_format) for t in (gamma, beta))
-    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        gamma, beta = (t if t.stride() == y.stride() and t.data_ptr() % 16 == 0
+                       else torch.empty_like(y).copy_(t) for t in (gamma, beta))
     io = io and x.dtype != torch.float32
     if io:  # ATen's bf16 group norm takes eps in the input's dtype
         eps = float(torch.tensor(eps, dtype=x.dtype))
     flags = ((_AFFINE if weight is not None else 0) | (_EMB if scale is not None else 0)
              | (_SILU if silu else 0) | (_IO if io else 0)
              | (_PARAMS_BF16 if weight is not None and weight.dtype == torch.bfloat16 else 0)
-             | (_CL_PAIRS if plan.pairs else 0))
+             | (_OUT_CL if cl and out_cl else 0))
     ss = (scale.stride(0), shift.stride(0)) if scale is not None else (0, 0)
     err = _kernel(spade)(x.data_ptr(), y.data_ptr(),
                          *((_ptr(gamma), _ptr(beta)) if spade else (_ptr(weight), _ptr(bias))),
                          _ptr(scale), _ptr(shift), *ss, n, c, hw, num_groups, eps,
-                         DTYPES[x.dtype], flags, int(cl), plan.splits, plan.pix, plan.vec,
-                         int(plan.resident), plan.ldb, x.device.index,
+                         DTYPES[x.dtype], flags, int(cl), plan.run, plan.chunk, plan.splits,
+                         plan.pix, plan.vec, int(plan.resident), _ptr(work), x.device.index,
                          torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"groupnorm{' spade' if spade else ''} kernel launch failed with CUDA "
-                           f"error {err} at shape {tuple(x.shape)} {x.dtype} (channels-last {cl}) "
-                           f"with {plan}")
+                           f"error {err} at shape {tuple(x.shape)} {x.dtype} (channels-last {cl}, "
+                           f"written channels-last {out_cl}) with {plan}")
     capturing = torch.cuda.is_current_stream_capturing()
     if spade and capturing:
         spade_captured += 1
@@ -285,6 +331,10 @@ def launch(x: torch.Tensor, num_groups: int, eps: float, weight=None, bias=None,
         captured += 1
     else:
         launches += 1
+    if out_cl and capturing:
+        channels_last_captured += 1
+    elif out_cl:
+        channels_last_writes += 1
     return y
 
 
@@ -310,8 +360,11 @@ class KernelGroupNorm(torch.autograd.Function):
                                  x.dtype, io, gamma, beta)
             wanted = [t for t, need in zip(leaves, needs) if t is not None and need]
             grads = iter(torch.autograd.grad(y, wanted, dy) if wanted else ())
-        return tuple(next(grads) if t is not None and need else None
-                     for t, need in zip(leaves, needs)) + (None,) * 4
+        # x's, gamma's and beta's gradients in their own layout (ATen's group
+        # norm on the card computes in NCHW)
+        return tuple((like(next(grads), t) if i in (0, 5, 6) else next(grads))
+                     if t is not None and need else None
+                     for i, (t, need) in enumerate(zip(leaves, needs))) + (None,) * 4
 
 
 def group_norm_act(x: torch.Tensor, num_groups: int, eps: float,
@@ -325,9 +378,9 @@ def group_norm_act(x: torch.Tensor, num_groups: int, eps: float,
     record), ``group_norm_plain`` for CPU tensors. ``TVC_GN_BF16_IO`` is read
     at each call. ``x`` is in ``dtype`` on either device (``_check``), so
     the CPU accepts what the card accepts; the kernel reads it contiguous or
-    channels-last, any other layout (the 3-D nets' volumes, frames innermost)
-    is made contiguous first, as ATen's group norm makes its input on the
-    card; the result is contiguous."""
+    channels-last and writes the layout it reads, any other layout (the 3-D
+    nets' volumes, frames innermost) is made contiguous first, as ATen's group
+    norm makes its input on the card."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"group_norm_act runs on cuda or cpu tensors, got {x.device}")
     _check(x, num_groups, weight, bias, scale, shift, dtype, gamma, beta)

@@ -9,20 +9,32 @@ same coefficients, applied in the same order, one spatial axis at a time.
 The two variables are read at each call, as the JAX package reads them at
 each trace: ``TVC_POLYPHASE=0`` takes the generic ``upfirdn2d`` convolution,
 ``TVC_FUSED_FIR=1`` the one-pass 2-D polyphase form (``resample_env`` names
-the settings that change bytes; a GOP payload's stamp carries them).
+the settings that change bytes; a GOP payload's stamp carries them). On the
+card the polyphase form, either of them, always runs as one launch of
+``csrc/fir.cu`` (``_fir_card``; under autograd through ``KernelFIR``, whose
+backward differentiates the ops), which rounds where the ops round: the same
+bytes. It reads the tensor as it lies, NHWC or channels-last, or NCHW as the
+NHWC tensor of its planes, and lays the result out as its input; it raises
+for any other layout or dtype. Its launches are counted (``launches``). The
+ops are the CPU's path and the kernel's oracle.
 
 Layout: NHWC, as in the JAX package, by default. ``spatial_axes=(2, 3)`` runs
-the same ops on the NCHW tensors inside the port's UNet.
+the same ops on the NCHW tensors inside the port's UNet. On the CPU the ops
+leave their results as before; where ``layout.keeps_layout`` holds (on the
+card), the generic form's NCHW result is laid out as its input.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from tvc_torch.ops import layout
 
 NHWC = (1, 2)
 NCHW = (2, 3)
@@ -43,6 +55,7 @@ def _upfirdn2d_nchw(x: torch.Tensor, k: np.ndarray, up: int, down: int,
                     pad: Tuple[int, int]) -> torch.Tensor:
     n, c, h, w = x.shape
     kh, kw = k.shape
+    ref = x
     if up > 1:
         z = x.new_zeros((n, c, h * up, w * up))
         z[:, :, ::up, ::up] = x
@@ -52,7 +65,7 @@ def _upfirdn2d_nchw(x: torch.Tensor, k: np.ndarray, up: int, down: int,
     # conv2d is a correlation: flip k for a true convolution; depthwise
     kern = torch.as_tensor(np.ascontiguousarray(k[::-1, ::-1]), dtype=x.dtype, device=x.device)
     kern = kern.reshape(1, 1, kh, kw).expand(c, 1, kh, kw)
-    return F.conv2d(x, kern, stride=down, groups=c)
+    return _as_input(F.conv2d(x, kern, stride=down, groups=c), ref)
 
 
 def upfirdn2d(x: torch.Tensor, k, up: int = 1, down: int = 1,
@@ -136,6 +149,130 @@ def _downsample2x_axis(x: torch.Tensor, k: list, axis: int) -> torch.Tensor:
     return k[3] * sl(0) + k[2] * sl(1) + k[1] * sl(2) + k[0] * sl(3)
 
 
+# Launches of ``csrc/fir.cu`` since the last ``reset_launches()``, counted
+# where the kernel is launched; one recorded into a CUDA graph adds to
+# ``captured`` instead, and the graph's owner counts its launches at each
+# replay (``count_launches``).
+launches = 0
+captured = 0
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def count_launches(n: int) -> None:
+    """Count ``n`` launches of the kernel made by replaying a CUDA graph."""
+    global launches
+    launches += n
+
+
+def _card(x: torch.Tensor) -> bool:
+    """Whether the polyphase form runs as ``csrc/fir.cu``'s kernel: on the card."""
+    return x.is_cuda
+
+
+def _launch(src: torch.Tensor, y: torch.Tensor, taps: list, up: bool, fused: bool) -> None:
+    """One launch of the kernel from the contiguous (N, H, W, C) ``src`` into
+    the contiguous ``y`` of the resampled shape, counted as one launch, or
+    one capture while the stream records a CUDA graph."""
+    global launches, captured
+    from tvc_torch.ops import _build
+
+    fn = _build.load("fir").tvc_fir2x
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    n, h, w, c = src.shape
+    vw = 16 // src.element_size()
+    vec = vw if c % vw == 0 and src.data_ptr() % 16 == 0 else 1
+    err = fn(src.data_ptr(), y.data_ptr(), n, h, w, c, int(up), int(fused), *taps,
+             DTYPES[src.dtype], vec, src.device.index,
+             torch.cuda.current_stream(src.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fir kernel launch failed with CUDA error {err} at shape "
+                           f"{tuple(src.shape)} {src.dtype}")
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
+
+
+def _fir_card(x: torch.Tensor, taps: list, up: bool, spatial_axes=NHWC,
+              fused: Optional[bool] = None) -> torch.Tensor:
+    """The 2x polyphase resample (both axes; ``fused``, default
+    ``fused_fir_enabled()``, the one-pass form) of ``x`` on the card, in one
+    launch of ``csrc/fir.cu``, which rounds where the ops round: the same
+    bytes. ``x`` is read as it lies and the result laid out as ``x``: its
+    (N, H, W, C) view contiguous (NHWC, or channels-last NCHW), or its
+    (N, C, H, W) view contiguous (NCHW, read as the NHWC tensor of its N * C
+    planes). Raises for another layout or dtype."""
+    if x.dtype not in DTYPES or x.dim() != 4:
+        raise TypeError(f"the fir kernel takes a 4-D float32 or bfloat16 tensor, got "
+                        f"{tuple(x.shape)} {x.dtype}")
+    fused = fused_fir_enabled() if fused is None else fused
+    x4 = x if tuple(spatial_axes) == NHWC else x.permute(0, 2, 3, 1)
+    n, h, w, c = x4.shape
+    ho, wo = (2 * h, 2 * w) if up else (h // 2, w // 2)
+    if x4.is_contiguous():
+        src, y4 = x4, x.new_empty((n, ho, wo, c))
+        dst = y4
+    elif x4.permute(0, 3, 1, 2).is_contiguous():
+        planes = x4.permute(0, 3, 1, 2)
+        src = planes.reshape(n * c, h, w, 1)
+        y = x.new_empty((n, c, ho, wo))
+        dst, y4 = y.view(n * c, ho, wo, 1), y.permute(0, 2, 3, 1)
+    else:
+        raise ValueError(f"the fir kernel reads a contiguous NHWC or NCHW tensor, got "
+                         f"strides {x.stride()} for spatial axes {tuple(spatial_axes)}")
+    if y4.numel():
+        _launch(src, dst, taps, up, fused)
+    return y4 if tuple(spatial_axes) == NHWC else y4.permute(0, 3, 1, 2)
+
+
+def _polyphase(x: torch.Tensor, taps: list, up: bool, axes: Tuple[int, int],
+               fused: bool) -> torch.Tensor:
+    """The 2x polyphase resample of both ``axes`` as ops: the two axis
+    passes, or the one-pass form where ``fused``."""
+    if fused:
+        return (_upsample2x_fused if up else _downsample2x_fused)(x, taps, axes)
+    one = _upsample2x_axis if up else _downsample2x_axis
+    return one(one(x, taps, axes[0]), taps, axes[1])
+
+
+class KernelFIR(torch.autograd.Function):
+    """The kernel's forward with the ops' gradient: the backward recomputes
+    ``_polyphase`` and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, x, taps, up, axes, fused):
+        ctx.save_for_backward(x)
+        ctx.args = (taps, up, axes, fused)
+        return _fir_card(x, taps, up, axes, fused)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        with torch.enable_grad():
+            leaf = x.detach().requires_grad_()
+            (dx,) = torch.autograd.grad(_polyphase(leaf, *ctx.args), leaf, dy)
+        return layout.like(dx, x), None, None, None, None
+
+
+def _resample2x(x: torch.Tensor, taps: list, up: bool, axes: Tuple[int, int]) -> torch.Tensor:
+    """The 2x polyphase resample: the kernel on the card (through
+    ``KernelFIR`` where autograd records), the ops elsewhere."""
+    fused = fused_fir_enabled()
+    if not _card(x):
+        return _polyphase(x, taps, up, tuple(axes), fused)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return KernelFIR.apply(x, taps, up, tuple(axes), fused)
+    return _fir_card(x, taps, up, axes, fused)
+
+
 def _product(a: float, b: float, dtype: torch.dtype) -> float:
     # a tap product as the JAX package forms it: in the activation's dtype
     return (torch.tensor(a, dtype=dtype) * torch.tensor(b, dtype=dtype)).item()
@@ -193,16 +330,18 @@ def _from_nchw(x, spatial_axes):
     return x.permute(0, 2, 3, 1) if tuple(spatial_axes) == NHWC else x
 
 
+def _as_input(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """An NCHW result ``y`` laid out as the input ``x`` where the layout is kept."""
+    return layout.like(y, x) if layout.keeps_layout(x) else y
+
+
 def upsample_2d(x: torch.Tensor, k: Sequence[float] = (1, 3, 3, 1), factor: int = 2,
                 gain: float = 1.0, spatial_axes: Tuple[int, int] = NHWC) -> torch.Tensor:
     """FIR upsample by ``factor``; polyphase for factor 2 with a separable 4-tap ``k``."""
     k4 = _separable_4tap(k)
     if factor == 2 and k4 is not None:
         taps = _taps(k4 * np.sqrt(np.float64(gain * factor ** 2)), x.dtype)
-        if fused_fir_enabled():
-            return _upsample2x_fused(x, taps, spatial_axes)
-        y = _upsample2x_axis(x, taps, spatial_axes[0])
-        return _upsample2x_axis(y, taps, spatial_axes[1])
+        return _resample2x(x, taps, True, spatial_axes)
     kk = setup_kernel(k) * (gain * (factor ** 2))
     p = kk.shape[0] - factor
     y = _upfirdn2d_nchw(_to_nchw(x, spatial_axes), kk, factor, 1,
@@ -216,10 +355,7 @@ def downsample_2d(x: torch.Tensor, k: Sequence[float] = (1, 3, 3, 1), factor: in
     k4 = _separable_4tap(k)
     if factor == 2 and k4 is not None:
         taps = _taps(k4 * np.sqrt(np.float64(gain)), x.dtype)
-        if fused_fir_enabled():
-            return _downsample2x_fused(x, taps, spatial_axes)
-        y = _downsample2x_axis(x, taps, spatial_axes[0])
-        return _downsample2x_axis(y, taps, spatial_axes[1])
+        return _resample2x(x, taps, False, spatial_axes)
     kk = setup_kernel(k) * gain
     p = kk.shape[0] - factor
     y = _upfirdn2d_nchw(_to_nchw(x, spatial_axes), kk, 1, factor, ((p + 1) // 2, p // 2))
@@ -241,7 +377,7 @@ def upsample_conv_2d(x: torch.Tensor, w: torch.Tensor, k: Sequence[float] = (1, 
     z = x.new_zeros((n, c, (h - 1) * factor + 1, (wd - 1) * factor + 1))
     z[:, :, ::factor, ::factor] = x
     y = F.conv2d(z, w, padding=kh - 1)
-    return _upfirdn2d_nchw(y, kk, 1, 1, ((p + 1) // 2 + factor - 1, p // 2 + 1))
+    return _as_input(_upfirdn2d_nchw(y, kk, 1, 1, ((p + 1) // 2 + factor - 1, p // 2 + 1)), x)
 
 
 def conv_downsample_2d(x: torch.Tensor, w: torch.Tensor, k: Sequence[float] = (1, 3, 3, 1),
@@ -253,7 +389,7 @@ def conv_downsample_2d(x: torch.Tensor, w: torch.Tensor, k: Sequence[float] = (1
     kk = setup_kernel(k) * gain
     p = (kk.shape[0] - factor) + (kw - 1)
     y = _upfirdn2d_nchw(x, kk, 1, 1, ((p + 1) // 2, p // 2))
-    return F.conv2d(y, w, stride=factor)
+    return _as_input(F.conv2d(y, w, stride=factor), x)
 
 
 def naive_upsample_2d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:

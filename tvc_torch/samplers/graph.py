@@ -41,7 +41,7 @@ from typing import Callable, Dict, Hashable, Optional, Set
 
 import torch
 
-from tvc_torch.ops import attention, groupnorm
+from tvc_torch.ops import attention, groupnorm, resample
 from tvc_torch.utils import profiler
 
 
@@ -54,6 +54,8 @@ class _Entry:
     kernel_launches: Dict[str, int]  # of them, by kernel name
     groupnorm_launches: int   # GroupNorm kernels the graph launches a replay
     spade_launches: int       # of the GroupNorm kernel's SPADE entry, a replay
+    channels_last_writes: int  # GroupNorm launches (either entry) writing channels-last
+    fir_launches: int         # of the FIR resampling kernel, a replay
     capture_s: float          # host seconds of the capture
     pool_bytes: int           # device memory the capture reserved (its pool)
     replays: int = 0
@@ -107,14 +109,18 @@ class GraphedEps:
             entry.graph.replay()  # raises on a failed replay
             profiler.count("graph.replays")
             attention.count_launches(entry.attention_launches, entry.kernel_launches)
-            groupnorm.count_launches(entry.groupnorm_launches, entry.spade_launches)
+            groupnorm.count_launches(entry.groupnorm_launches, entry.spade_launches,
+                                     entry.channels_last_writes)
+            resample.count_launches(entry.fir_launches)
             entry.replays += 1
             return entry.output.clone()
 
     def _capture(self, key, inputs) -> _Entry:
         static = {k: torch.empty_like(v) for k, v in inputs.items() if v is not None}
         c0 = dict(attention.kernel_captured)
-        g0, s0 = groupnorm.captured, groupnorm.spade_captured
+        g0, s0, w0 = (groupnorm.captured, groupnorm.spade_captured,
+                      groupnorm.channels_last_captured)
+        f0 = resample.captured
         with profiler.timed("predictor.capture") as timer:
             profiler.count("graph.captures")
             try:
@@ -124,16 +130,21 @@ class GraphedEps:
                 raise RuntimeError(f"CUDA graph capture of the UNet call {key} failed") from e
         by_kernel = {k: n - c0[k] for k, n in attention.kernel_captured.items()}
         entry = _Entry(graph, static, out, launches, by_kernel, groupnorm.captured - g0,
-                       groupnorm.spade_captured - s0, timer.seconds, pool)
+                       groupnorm.spade_captured - s0, groupnorm.channels_last_captured - w0,
+                       resample.captured - f0, timer.seconds, pool)
         self.entries[key] = entry
         return entry
 
     def stats(self) -> Dict[str, dict]:
         """Per signature: capture seconds, pool bytes, attention, GroupNorm
-        and SPADE norm launches a replay and replays so far."""
+        and SPADE norm launches a replay, the GroupNorm launches of them that
+        write channels-last, the FIR resampling kernel's launches a replay,
+        and replays so far."""
         return {str(k): {"capture_s": e.capture_s, "pool_bytes": e.pool_bytes,
                          "attention_launches": e.attention_launches,
                          "groupnorm_launches": e.groupnorm_launches,
-                         "spade_launches": e.spade_launches, "replays": e.replays}
+                         "spade_launches": e.spade_launches,
+                         "channels_last_writes": e.channels_last_writes,
+                         "fir_launches": e.fir_launches, "replays": e.replays}
                 for k, e in self.entries.items()}
 

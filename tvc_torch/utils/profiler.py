@@ -205,13 +205,17 @@ def record() -> Dict[str, Any]:
     None while it is open); the counters include the attention kernels'
     launch counts as ``ops/attention.py`` keeps them (``attention.kernel_launches``)
     and the GroupNorm kernel's as ``ops/groupnorm.py`` does
-    (``groupnorm.kernel_launches``, ``groupnorm.spade_launches``)."""
-    from tvc_torch.ops import attention, groupnorm
+    (``groupnorm.kernel_launches``, ``groupnorm.spade_launches``,
+    ``groupnorm.channels_last_writes``) and the FIR resampling kernel's as
+    ``ops/resample.py`` does (``resample.fir_launches``)."""
+    from tvc_torch.ops import attention, groupnorm, resample
 
     counters: Dict[str, Any] = dict(_counters)
     counters["attention.kernel_launches"] = dict(attention.kernel_launches)
     counters["groupnorm.kernel_launches"] = groupnorm.launches
     counters["groupnorm.spade_launches"] = groupnorm.spade_launches
+    counters["groupnorm.channels_last_writes"] = groupnorm.channels_last_writes
+    counters["resample.fir_launches"] = resample.launches
     return {"spans": [{"name": n, "start_ns": a, "end_ns": b, "parent": p, "gop": g}
                       for n, a, b, p, g in _spans],
             "counters": counters}
